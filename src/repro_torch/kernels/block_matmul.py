@@ -1,0 +1,116 @@
+"""block_matmul: ``x (M,K) @ w (K,N)`` with an fp32 accumulator, output in
+``x.dtype`` — the multi-version compilation target of the port.
+
+Port of ``repro.kernels.block_matmul`` (the TPU kernel ``_matmul_kernel``
+/ ``block_matmul_2d``).  The (bm, bk, bn) tile is the locality knob the
+adaptive compiler picks per interference level.  On a CUDA tensor the
+wrapper launches the hand-written kernel in ``csrc/block_matmul.cu`` with
+the selected tile (it sets the grid and the shared-memory size); on a CPU
+tensor it runs :func:`matmul_plain`, the kernel's plain PyTorch version.
+
+The TPU wrapper clamps the tile to the zero-padded problem (``bm <=
+ceil8(M)``, ``bk <= ceil128(K)``, ``bn <= ceil128(N)``); the CUDA kernel
+masks instead of padding, and the tile never exceeds the problem rounded
+up to a power of two no smaller than the kernel's least tile
+(:func:`effective_tiles`).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+# Tiles the CUDA kernel is instantiated for.
+BM_CHOICES = (16, 32, 64, 128)
+BN_CHOICES = (32, 64, 128)
+BK_CHOICES = (32, 64)
+
+# Launches of the CUDA kernel, keyed by the (bm, bk, bn) tile it ran.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: fp32 product, cast to ``x.dtype``."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    return max(floor, 1 << (max(int(n), 1) - 1).bit_length())
+
+
+def effective_tiles(m: int, k: int, n: int, bm: int, bk: int,
+                    bn: int) -> tuple[int, int, int]:
+    """The (bm, bk, bn) the kernel runs for an (m, k) @ (k, n) product."""
+    return (min(bm, _pow2_at_least(m, BM_CHOICES[0])),
+            min(bk, _pow2_at_least(k, BK_CHOICES[0])),
+            min(bn, _pow2_at_least(n, BN_CHOICES[0])))
+
+
+def smem_bytes(bm: int, bk: int, bn: int, itemsize: int = 2) -> int:
+    """Shared memory of one block: the row-padded x and w tiles (the fp32
+    accumulator lives in registers).  Replaces ``vmem_bytes``."""
+    return (bm * (bk + 8) + bk * (bn + 8)) * itemsize
+
+
+def launch_count() -> int:
+    return sum(LAUNCHES.values())
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("block_matmul")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.block_matmul_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.block_matmul_bf16.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def block_matmul_2d(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
+                    bk: int = 64, bn: int = 128) -> torch.Tensor:
+    """x (M,K) @ w (K,N) -> (M,N) in ``x.dtype``."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"block_matmul_2d: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return matmul_plain(x, w)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"block_matmul_2d: tensors on {x.device} and "
+                         f"{w.device}; the kernel takes one CUDA device")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"block_matmul_2d: kernel takes bf16, got "
+                        f"{x.dtype} @ {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("block_matmul_2d: kernel takes contiguous tensors")
+    m, k = x.shape
+    n = w.shape[1]
+    tbm, tbk, tbn = effective_tiles(m, k, n, bm, bk, bn)
+    if tbm not in BM_CHOICES or tbk not in BK_CHOICES or \
+            tbn not in BN_CHOICES:
+        raise ValueError(f"block_matmul_2d: tile (bm={tbm}, bk={tbk}, "
+                         f"bn={tbn}) is not one the kernel is built for "
+                         f"(bm {BM_CHOICES}, bk {BK_CHOICES}, bn "
+                         f"{BN_CHOICES})")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    vec_x = int(k % 8 == 0 and x.data_ptr() % 16 == 0)
+    vec_w = int(n % 8 == 0 and w.data_ptr() % 16 == 0)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.block_matmul_bf16(x.data_ptr(), w.data_ptr(),
+                                    out.data_ptr(), m, n, k, tbm, tbn, tbk,
+                                    vec_x, vec_w, stream)
+    cuda_build.check(lib, err, "block_matmul_bf16")
+    LAUNCHES[(tbm, tbk, tbn)] += 1
+    return out

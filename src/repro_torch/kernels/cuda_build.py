@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels (``nvcc`` + ``ctypes``).
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
+own into ``build/repro_torch/lib<name>.so`` at the repository root
+(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``).  The build
+happens at first use and again whenever a source is newer than its
+library; :func:`build` compiles every stale source with one ``nvcc``
+process per source, all started together.  Nothing here runs at import
+time: the CPU tests import every module of the port on a machine
+without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch"
+SOURCES = ("block_matmul", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
+        "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                           "kernels of repro_torch build at first use")
+    return found
+
+
+def lib_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = lib_path(name)
+    return not lib.exists() or \
+        lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
+    """Compile every stale source in ``names`` in parallel.  Returns
+    name -> compiler output (``-Xptxas -v``: registers, shared memory
+    and spills per kernel) for the sources it compiled; raises
+    ``RuntimeError`` with the output of every source that failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs: dict[str, tuple[pathlib.Path, subprocess.Popen]] = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs: dict[str, str] = {}
+    failed: list[str] = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+                          f"{out}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if stale."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.cuda_error_name.argtypes = [ctypes.c_int]
+            lib.cuda_error_name.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry point returned a non-zero ``cudaError_t``
+    (a launch the card refused never runs, and a later synchronize does
+    not report it)."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.cuda_error_name(err).decode()})")

@@ -1,0 +1,31 @@
+"""Adapters from model-side calling conventions to the kernels' layouts
+(the dispatch contract of ``repro.kernels.ops``): leading dimensions of a
+matmul input are flattened, and attention takes ``q_positions[..., 0]``
+as each row's offset (every call site uses row-contiguous positions)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import block_matmul as _bm
+from repro_torch.kernels import flash_attention as _fa
+
+
+def block_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
+                 bk: int = 64, bn: int = 128) -> torch.Tensor:
+    """x (..., K) @ w (K, N) through the tiled kernel."""
+    lead = x.shape[:-1]
+    out = _bm.block_matmul_2d(x.reshape(-1, x.shape[-1]), w, bm=bm, bk=bk,
+                              bn=bn)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor, kv_valid_len, window=None,
+                    softcap=None, bq: int = 64,
+                    bkv: int = 64) -> torch.Tensor:
+    """Models pass q_positions (B,S); the kernel takes a per-row offset
+    with query i of row b at offset[b] + i."""
+    offset = q_positions[..., 0].reshape(-1)
+    return _fa.flash_attention(q, k, v, offset=offset,
+                               kv_valid_len=kv_valid_len, bq=bq, bkv=bkv,
+                               window=window, softcap=softcap)

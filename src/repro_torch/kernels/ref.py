@@ -1,0 +1,11 @@
+"""Plain PyTorch versions of every ported kernel (shape-for-shape
+reference, as ``repro.kernels.ref``).  Each is defined beside its kernel;
+this module gathers them under the reference package's names for the
+tests and the on-card checks."""
+from __future__ import annotations
+
+from repro_torch.kernels.block_matmul import matmul_plain as matmul_ref
+from repro_torch.kernels.flash_attention import \
+    attention_plain as attention_ref
+
+__all__ = ["matmul_ref", "attention_ref"]

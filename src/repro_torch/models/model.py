@@ -1,0 +1,202 @@
+"""Model assembly of the PyTorch port, dense family (``repro.models.model``).
+
+Parameters and caches keep the reference's stacked leading ``"layers"``
+axis (``blocks/dense/...``), so their path strings and shapes line up
+with the JAX trees; the layers run as a Python loop over views of the
+stacked tensors.  Caches are updated in place: the decode entry points
+return the cache they were given, and a fused decode quantum masks the
+cache write of every row past its step budget instead of reverting it
+afterwards.
+
+Inputs dict: ``{"tokens": (B,S) int}``; decode inputs ``{"tokens": (B,)}``
+with a position ``t`` — a Python int (all rows aligned) or a (B,) tensor
+of per-row positions (continuous batching).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamSpec, init_params, \
+    tree_map_with_path
+
+PyTree = Any
+
+
+def cache_batch_axis(path: tuple[str, ...]) -> int:
+    """Batch axis of a cache leaf: stacked block caches carry a leading
+    layer axis, so batch is axis 1 under ``blocks`` and 0 elsewhere."""
+    return 1 if "blocks" in path else 0
+
+
+def stack_specs(tree: PyTree, n: int) -> PyTree:
+    return tree_map_with_path(
+        lambda _, s: ParamSpec((n,) + s.shape, s.dtype, ("layers",) + s.axes,
+                               init=s.init, init_scale=s.init_scale), tree)
+
+
+def _block_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def _kv_specs(cfg: ModelConfig, batch: int, t_max: int) -> dict:
+    k, d = cfg.num_kv_heads, cfg.head_dim
+    return {"k": ParamSpec((batch, t_max, k, d), cfg.cache_dtype(),
+                           ("batch", "seq", "kv_heads", "head_dim"),
+                           init="zeros"),
+            "v": ParamSpec((batch, t_max, k, d), cfg.cache_dtype(),
+                           ("batch", "seq", "kv_heads", "head_dim"),
+                           init="zeros")}
+
+
+def _layer(tree: PyTree, i: int) -> PyTree:
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return tree_map_with_path(lambda _, a: a[i], tree)
+
+
+class TorchModel:
+    """The dense decoder (``family == "dense"``)."""
+
+    def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves the dense family only "
+                f"(got {cfg.family!r})")
+        self.cfg = cfg
+        # False runs every kernel's plain version, on any device (the
+        # on-card whole-model check compares the two)
+        self.use_kernels = use_kernels
+
+    # -- parameters ------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        return {"embed": L.embed_specs(cfg),
+                "blocks": stack_specs({"dense": _block_specs(cfg)},
+                                      cfg.num_layers),
+                "final_norm": L.norm_specs(cfg)}
+
+    def init(self, generator: torch.Generator, device) -> PyTree:
+        return init_params(self.param_specs(), generator, device)
+
+    # -- caches ------------------------------------------------------------
+    # veltair: ignore[paged-leaf-coverage] the port's KV cache is dense only (paging is a later slice of the port); the reference's Model.cache_specs anchor is another class
+    def cache_specs(self, batch: int, t_max: int) -> dict:
+        return {"blocks": stack_specs(
+            {"dense": _kv_specs(self.cfg, batch, t_max)},
+            self.cfg.num_layers)}
+
+    def init_cache(self, batch: int, t_max: int, device) -> PyTree:
+        return tree_map_with_path(
+            lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            self.cache_specs(batch, t_max))
+
+    # -- stacks ------------------------------------------------------------
+    def _default_positions(self, b: int, s: int, t0, device) -> torch.Tensor:
+        """Row-contiguous positions from ``t0``: an int (all rows
+        aligned) or a (B,) tensor of per-row offsets."""
+        ar = torch.arange(s, device=device)
+        if isinstance(t0, torch.Tensor):
+            return t0.to(device=device, dtype=torch.int64)[:, None] + ar
+        return (t0 + ar)[None, :].expand(b, s)
+
+    def _run_blocks(self, params, x, *, positions, cache, t, live=None):
+        cfg = self.cfg
+        blocks = params["blocks"]["dense"]
+        caches = cache["blocks"]["dense"] if cache is not None else None
+        for i in range(cfg.num_layers):
+            p = _layer(blocks, i)
+            c = _layer(caches, i) if caches is not None else None
+            xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
+            x = x + L.attention(p["attn"], xa, cfg=cfg, positions=positions,
+                                cache=c, cache_index=t, live=live,
+                                use_kernel_hook=self.use_kernels)
+            xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
+            x = x + L.apply_mlp(p["mlp"], xm, cfg.activation,
+                                use_kernel_hook=self.use_kernels)
+        return x
+
+    def _logits(self, params, x):
+        x = L.apply_norm(params["final_norm"], x, self.cfg.norm_type)
+        return L.unembed(params["embed"], x, self.cfg)[:, 0]
+
+    # -- entry points --------------------------------------------------------
+    def prefill(self, params, inputs, cache):
+        """Process a prompt from position 0, filling ``cache`` in place.
+        -> (last logits (B,V) fp32, cache)."""
+        toks = inputs["tokens"]
+        b, s = toks.shape
+        positions = self._default_positions(b, s, 0, toks.device)
+        x = L.embed(params["embed"], toks, self.cfg)
+        x = self._run_blocks(params, x, positions=positions, cache=cache, t=0)
+        return self._logits(params, x[:, -1:]), cache
+
+    def prefill_chunk(self, params, inputs, cache, t0: int, valid_len: int):
+        """Incremental prefill of one fixed-size chunk at absolute start
+        position ``t0``: ``inputs["tokens"]`` is (B, C) with only the
+        first ``valid_len`` tokens real.  The padded tail writes KV rows
+        that stay causally invisible until the decode step at their
+        position overwrites them, so chaining chunks equals one
+        :meth:`prefill`.  ``t0`` and ``valid_len`` are host ints (no
+        device sync to index).  -> (logits (B,V) at the last valid token,
+        cache)."""
+        toks = inputs["tokens"]
+        b, s = toks.shape
+        positions = self._default_positions(b, s, t0, toks.device)
+        x = L.embed(params["embed"], toks, self.cfg)
+        x = self._run_blocks(params, x, positions=positions, cache=cache,
+                             t=t0)
+        return self._logits(params, x[:, valid_len - 1:valid_len]), cache
+
+    def decode_step(self, params, inputs, cache, t, live=None):
+        """One-token decode at absolute position ``t`` (an int or a (B,)
+        tensor).  ``live`` (B,) bool freezes the cache of rows that are
+        not live.  -> (logits (B,V) fp32, cache)."""
+        toks = inputs["tokens"]
+        b = toks.shape[0]
+        positions = self._default_positions(b, 1, t, toks.device)
+        x = L.embed(params["embed"], toks.reshape(b, 1), self.cfg)
+        x = self._run_blocks(params, x, positions=positions, cache=cache,
+                             t=t, live=live)
+        return self._logits(params, x), cache
+
+    def select_cache_rows(self, live: torch.Tensor, new_cache: PyTree,
+                          old_cache: PyTree) -> PyTree:
+        """Per-row cache select (functional): rows where ``live`` is True
+        take ``new_cache``, the others keep ``old_cache`` bit-exact."""
+        def sel(path, n, o):
+            shape = [1] * n.ndim
+            shape[cache_batch_axis(path)] = live.shape[0]
+            return torch.where(live.reshape(shape), n, o).to(o.dtype)
+        return tree_map_with_path(sel, new_cache, old_cache)
+
+    def decode_quantum(self, params, tokens, cache, pos, n_left, k: int):
+        """Fused decode of up to ``k`` greedy tokens per row with on-device
+        argmax sampling and no host sync.
+
+        ``tokens`` (B,) last-sampled token per row; ``pos`` (B,) absolute
+        positions; ``n_left`` (B,) per-row step budget (rows past it
+        freeze: token, position and cache).  Returns ``(block (k, B),
+        cache, pos)``; column ``i`` of ``block`` is valid for its first
+        ``n_left[i]`` rows."""
+        toks = tokens.to(torch.int64)
+        pos = pos.to(torch.int64)
+        out = []
+        for j in range(int(k)):
+            live = n_left > j
+            logits, cache = self.decode_step(params, {"tokens": toks}, cache,
+                                             pos, live=live)
+            toks = torch.where(live, logits.argmax(dim=-1), toks)
+            pos = torch.where(live, pos + 1, pos)
+            out.append(toks)
+        return torch.stack(out), cache, pos
+
+
+# The class has its own name and the reference's name is an alias: the
+# repository's static analyzer (repro.analysis.callgraph) keys classes by
+# bare name, and a second class named Model would merge with the
+# reference's and shrink the reference's audited hot path.
+Model = TorchModel

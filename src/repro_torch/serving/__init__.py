@@ -1,0 +1,1 @@
+"""serving layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,246 @@
+"""The port's dense model against the JAX model on the CPU (reduced
+gemma-2b, the JAX parameters bridged over).
+
+Tolerances and why:
+  * Exact equality against the reference compiled with XLA's
+    ``xla_allow_excess_precision`` off: then every JAX op rounds to bf16
+    where the port does, and prefill / chunked-prefill / decode logits,
+    fused-quantum tokens and KV caches are bit-identical.
+  * 2e-2 absolute on logits and bf16 cache entries against the reference
+    as it runs by default: inside its compiled layer scan XLA fuses
+    elementwise chains and skips intermediate bf16 roundings (excess
+    precision), so residual-stream values differ by a few bf16 ulps
+    (measured: 3.9e-3 on logits of magnitude ~0.7, 1.6e-2 on cache
+    entries of magnitude ~4).
+  * 5e-2 against Pallas interpret mode (the tolerance the reference uses
+    for interpret vs xla, ``tests/test_kernels.py``): the flash kernel
+    sums its softmax in tiles.
+  * Greedy tokens must be identical.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced_config as jax_reduced_config  # noqa: E402
+from repro.kernels import dispatch as jax_dispatch  # noqa: E402
+from repro.models import build_model  # noqa: E402
+from repro_torch.bridge import cache_to_numpy, params_from_numpy  # noqa: E402
+from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+
+MAX_LEN = 32
+SCAN_TOL = 2e-2
+INTERPRET_TOL = 5e-2
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = jax_reduced_config("gemma-2b")
+    jmodel = build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    return jmodel, jparams, Model(get_reduced_config("gemma-2b")), tparams
+
+
+@pytest.fixture
+def interpret():
+    jax_dispatch.set_mode("interpret")
+    try:
+        yield
+    finally:
+        jax_dispatch.set_mode("xla")
+
+
+def _tokens(seed, shape):
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(
+        np.int32)
+
+
+def _tt(a):
+    return torch.from_numpy(np.asarray(a, np.int64))
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _jax_cache_np(cache):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), cache)
+
+
+def _exact(fn, *args):
+    """Run a reference function compiled without XLA's excess precision
+    (bf16 rounding after every op, as eager PyTorch does)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def _run_both(pair, seed, exact):
+    """Prefill 7 tokens, one decode step, then a 4-token chunk at t=8
+    (decode-written position 7 stays), on both models."""
+    jmodel, jp, tmodel, tp = pair
+    run = _exact if exact else (lambda fn, *args: fn(*args))
+    toks = _tokens(seed, (2, 7))
+    jc = jmodel.init_cache(2, MAX_LEN)
+    tc = tmodel.init_cache(2, MAX_LEN, "cpu")
+    jl1, jc = run(lambda p, x, c: jmodel.prefill(p, {"tokens": x}, c),
+                  jp, jnp.asarray(toks), jc)
+    tl1, tc = tmodel.prefill(tp, {"tokens": _tt(toks)}, tc)
+    nxt = np.argmax(_np(jl1), -1).astype(np.int32)
+    jl2, jc = run(lambda p, x, c, t: jmodel.decode_step(p, {"tokens": x},
+                                                        c, t),
+                  jp, jnp.asarray(nxt), jc, jnp.asarray([7, 7], jnp.int32))
+    tl2, tc = tmodel.decode_step(tp, {"tokens": _tt(nxt)}, tc,
+                                 _tt([7, 7]))
+    chunk = _tokens(seed + 1, (2, 4))
+    jl3, jc = run(lambda p, x, c: jmodel.prefill_chunk(
+        p, {"tokens": x}, c, jnp.int32(8), jnp.int32(3)),
+        jp, jnp.asarray(chunk), jc)
+    tl3, tc = tmodel.prefill_chunk(tp, {"tokens": _tt(chunk)}, tc, 8, 3)
+    got = [tl1.numpy(), tl2.numpy(), tl3.numpy()]
+    want = [_np(jl1), _np(jl2), _np(jl3)]
+    return got, want, cache_to_numpy(tc), _jax_cache_np(jc)
+
+
+def test_reduced_config_matches_reference():
+    assert dataclasses.asdict(get_reduced_config("gemma-2b")) == \
+        dataclasses.asdict(jax_reduced_config("gemma-2b"))
+
+
+def test_logits_and_cache_bit_identical_to_reference(pair):
+    got, want, tcache, jcache = _run_both(pair, seed=0, exact=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for name in ("k", "v"):
+        # valid positions: 7 prompt tokens, the decode write, 3 real
+        # chunk tokens
+        np.testing.assert_array_equal(
+            tcache["blocks"]["dense"][name][:, :, :11],
+            jcache["blocks"]["dense"][name][:, :, :11])
+
+
+def test_logits_and_cache_match_scanned_reference(pair):
+    got, want, tcache, jcache = _run_both(pair, seed=1, exact=False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=SCAN_TOL)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+    for name in ("k", "v"):
+        t = tcache["blocks"]["dense"][name]
+        j = jcache["blocks"]["dense"][name]
+        # the first layer sees no upstream fusion: bit-identical
+        np.testing.assert_array_equal(t[0, :, :11], j[0, :, :11])
+        np.testing.assert_allclose(t[:, :, :11], j[:, :, :11], rtol=0,
+                                   atol=SCAN_TOL)
+
+
+def test_logits_match_interpret_mode_reference(pair, interpret):
+    got, want, _, _ = _run_both(pair, seed=2, exact=False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=INTERPRET_TOL,
+                                   atol=INTERPRET_TOL)
+
+
+def test_chained_prefill_chunks_equal_one_shot_prefill(pair):
+    _, _, tmodel, tp = pair
+    prompt = _tokens(3, (1, 13))
+    one = tmodel.init_cache(1, MAX_LEN, "cpu")
+    want, one = tmodel.prefill(tp, {"tokens": _tt(prompt)}, one)
+    chained = tmodel.init_cache(1, MAX_LEN, "cpu")
+    t0 = 0
+    for c in (8, 4, 1):          # the engine's bucket schedule for 13
+        toks = np.zeros((1, c), np.int32)
+        toks[:, :min(c, 13 - t0)] = prompt[:, t0:t0 + c]
+        got, chained = tmodel.prefill_chunk(tp, {"tokens": _tt(toks)},
+                                            chained, t0, min(c, 13 - t0))
+        t0 += c
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(
+            cache_to_numpy(chained)["blocks"]["dense"][name][:, :, :13],
+            cache_to_numpy(one)["blocks"]["dense"][name][:, :, :13])
+
+
+# staggered per-row budgets: rows freeze at different steps of one quantum
+QUANTUM_CASES = [
+    ((3, 7, 2), (5, 2, 0), 8),
+    ((6, 1, 4), (1, 4, 3), 4),
+]
+
+
+@pytest.mark.parametrize("prompt_lens,n_left,k", QUANTUM_CASES)
+def test_decode_quantum_token_identical_to_jax(pair, prompt_lens, n_left, k):
+    jmodel, jp, tmodel, tp = pair
+    b = len(prompt_lens)
+    jc = jmodel.init_cache(b, MAX_LEN)
+    tc = tmodel.init_cache(b, MAX_LEN, "cpu")
+    first = np.zeros(b, np.int32)
+    for i, n in enumerate(prompt_lens):
+        prompt = _tokens(10 + i, (1, n))
+        row_j = jmodel.init_cache(1, MAX_LEN)
+        lj, row_j = _exact(
+            lambda p, x, c: jmodel.prefill(p, {"tokens": x}, c),
+            jp, jnp.asarray(prompt), row_j)
+        row_t = tmodel.init_cache(1, MAX_LEN, "cpu")
+        _, row_t = tmodel.prefill(tp, {"tokens": _tt(prompt)}, row_t)
+        jc = jax.tree_util.tree_map(
+            lambda c, r: c.at[:, i].set(r[:, 0]), jc, row_j)
+        for name in ("k", "v"):
+            tc["blocks"]["dense"][name][:, i] = \
+                row_t["blocks"]["dense"][name][:, 0]
+        first[i] = int(np.argmax(_np(lj[0])))
+    pos = np.asarray(prompt_lens, np.int32)
+    nl = np.asarray(n_left, np.int32)
+    jblock, jc, jpos = _exact(
+        lambda p, t, c, q, n: jmodel.decode_quantum(p, t, c, q, n, k),
+        jp, jnp.asarray(first), jc, jnp.asarray(pos), jnp.asarray(nl))
+    frozen_before = cache_to_numpy(tc)
+    tblock, tc, tpos = tmodel.decode_quantum(tp, _tt(first), tc, _tt(pos),
+                                             _tt(nl), k)
+    jblock = np.asarray(jblock)
+    for i in range(b):
+        assert tblock[:n_left[i], i].tolist() == \
+            jblock[:n_left[i], i].tolist()
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    after = cache_to_numpy(tc)
+    jafter = _jax_cache_np(jc)
+    for i in range(b):
+        end = prompt_lens[i] + n_left[i]
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(
+                after["blocks"]["dense"][name][:, i, :end],
+                jafter["blocks"]["dense"][name][:, i, :end])
+    # a row with no budget keeps its whole cache bit-exact
+    for i in range(b):
+        if n_left[i] == 0:
+            for name in ("k", "v"):
+                np.testing.assert_array_equal(
+                    after["blocks"]["dense"][name][:, i],
+                    frozen_before["blocks"]["dense"][name][:, i])
+
+
+def test_select_cache_rows_matches_reference(pair):
+    jmodel, _, tmodel, _ = pair
+    rng = np.random.default_rng(5)
+    shape = (tmodel.cfg.num_layers, 3, 4, tmodel.cfg.num_kv_heads,
+             tmodel.cfg.head_dim)
+    new = {"blocks": {"dense": {n: rng.standard_normal(shape).astype(
+        np.float32) for n in ("k", "v")}}}
+    old = {"blocks": {"dense": {n: rng.standard_normal(shape).astype(
+        np.float32) for n in ("k", "v")}}}
+    live = np.array([True, False, True])
+    want = jmodel.select_cache_rows(
+        jnp.asarray(live), jax.tree_util.tree_map(jnp.asarray, new),
+        jax.tree_util.tree_map(jnp.asarray, old))
+    got = tmodel.select_cache_rows(
+        torch.from_numpy(live), params_from_numpy(new),
+        params_from_numpy(old))
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(
+            got["blocks"]["dense"][name].numpy(),
+            np.asarray(want["blocks"]["dense"][name]))
