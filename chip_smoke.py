@@ -9,9 +9,11 @@ Phases, each fatal on failure:
   1. card: name and power limit, then the build of every CUDA kernel of
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version, in bf16 at the
-     serving path's shapes, under every distinct tile of the H100 level
-     table, plus ragged shapes;
-  3. serve: full-width gemma-2b (18 layers, seeded random weights made on
+     serving paths' shapes (``block_matmul`` and ``flash_attention``
+     under every distinct tile of the H100 level table; ``ssd_scan`` at
+     the serve's chunks, a three-chunk monolithic prompt and B = 4), plus
+     ragged shapes;
+  3. serve gemma-2b: full width (18 layers, seeded random weights made on
      the card) through ``ServingEngine(batch_slots=4, max_len=512)`` after
      ``warmup()``: six requests admitted with ``admit_request`` +
      ``prefill_step`` and decoded by 8-step quanta while the interference
@@ -22,9 +24,15 @@ Phases, each fatal on failure:
      time by kernel and the device's idle share;
   5. whole-model check: first-prefill-chunk and first-decode logits
      through the kernels and through the plain versions, same weights;
-  6. times at the serve's shapes: kernel, plain version, one PyTorch call
-     as a yardstick, and the bound (bytes at 3.35 TB/s or FLOPs at
-     989 TFLOP/s, whichever is larger).
+  6. serve, profile and check mamba2-780m the same way (48 layers,
+     d_inner 3072, 48 SSD heads): ``ssd_scan`` launches once per layer
+     for every prefill chunk of two or more tokens; the profile covers
+     one 16-token prefill chunk and one 8-step decode quantum; the
+     whole-model check runs a 600-token monolithic prefill (three scan
+     chunks of 256) through the kernel and through the plain versions;
+  7. times at the serve's shapes: kernel, plain version, one PyTorch call
+     as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
+     or FLOPs at 989 TFLOP/s, whichever is larger).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -51,12 +59,17 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16, data sheet
 # (two bf16 ulps relative, with an absolute floor of 2^-6: the two differ
 # only in fp32 summation order, so at most a rounding flip of the output)
 ATOL = RTOL = 2.0 ** -6
+# ssd_scan's fp32 final state, kernel vs plain version: the same products
+# summed in another order (and a warp-level cumsum of dt*a)
+STATE_RTOL = 1e-3
 # whole-model logits, kernels vs plain versions: activations round to
 # bf16 after every op, so a one-ulp flip anywhere in 18 residual layers
-# propagates; bound the drift at 5% of the largest logit
+# propagates; bound the drift at 5% of the largest logit (and the final
+# SSD state of mamba2's last layer at 5% of its largest entry)
 LOGIT_RTOL = 5e-2
 
 PROMPT_LENS = (5, 37, 64, 100, 180, 250)
+MONO_LEN = 600            # a monolithic mamba2 prompt: 3 scan chunks
 MAX_NEW = 32
 QUANTUM = 8
 BATCH_SLOTS = 4
@@ -80,13 +93,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cycles of the device-side sleep that holds the stream while the host
+# enqueues a timing loop (~0.1 s at the H100's boost clock)
+SLEEP_CYCLES = 200_000_000
+
+
 def cold_ms(fn, n: int, flush) -> float:
     """Median device time of ``fn`` over ``n`` launches, each after the
     L2 cache was flushed (the serving path finds its inputs cold: the
-    MLP weights stream through L2 between two calls of one layer)."""
+    MLP weights stream through L2 between two calls of one layer).  A
+    device-side sleep first holds the stream, so the host enqueues the
+    whole loop before the device reaches it and each event pair brackets
+    device work only; without it, the wrappers' host time (tens of µs of
+    Python per call) shows up as device idle time between the events."""
     import torch
     pairs = []
     fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     for _ in range(n):
         flush()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -183,11 +207,70 @@ def check_kernels(dev, gen, report) -> dict:
     return worst
 
 
-def serve(cfg, params, prompts, dev, report) -> dict:
+def ssd_inputs(gen, dev, bsz, l, h, p, n, with_init):
+    """bf16 x, B, C and an fp32 state of unit scale; dt = softplus of a
+    normal (as the mixer makes it), a in (-2.1, -0.1)."""
+    import torch
+    x = torch.randn(bsz, l, h, p, generator=gen, device=dev).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, l, h, generator=gen, device=dev) - 1.0)
+    a = -torch.rand(h, generator=gen, device=dev) * 2.0 - 0.1
+    b = torch.randn(bsz, l, h, n, generator=gen, device=dev).bfloat16()
+    c = torch.randn(bsz, l, h, n, generator=gen, device=dev).bfloat16()
+    h0 = (torch.randn(bsz, h, p, n, generator=gen, device=dev)
+          if with_init else None)
+    return x, dt, a, b, c, h0
+
+
+def check_ssd(dev, gen, report) -> float:
+    """``ssd_scan`` against its plain version in the serve's types: y
+    within ATOL + RTOL*|plain|, the fp32 final state within STATE_RTOL of
+    its largest entry.  Returns the worst |y| error."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_ref
+
+    # (label, B, L, H, P, N, chunk, initial state)
+    cases = [(f"serve chunk L={l}", 1, l, 48, 64, 128, 256, True)
+             for l in (2, 4, 8, 16)]
+    cases += [(f"monolithic L={MONO_LEN} (3 chunks, ragged tail)", 1,
+               MONO_LEN, 48, 64, 128, 256, init) for init in (False, True)]
+    cases += [("batch 4 L=16", 4, 16, 48, 64, 128, 256, True),
+              ("ragged L=37 P=20 N=7", 2, 37, 3, 20, 7, 16, True),
+              ("ragged L=5 P=33 N=130", 3, 5, 2, 33, 130, 4, False)]
+    worst = 0.0
+    tol = f"y {ATOL:.4g} + {RTOL:.4g}*|plain|, state {STATE_RTOL:.4g}*max"
+    for label, bsz, l, h, p, n, chunk, init in cases:
+        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, bsz, l, h, p, n, init)
+        y, state = ssd.ssd_scan(x, dt, a, b, c, chunk_size=chunk,
+                                initial_state=h0)
+        torch.cuda.synchronize()
+        want_y, want_s = ssd_ref(x, dt, a, b, c, chunk_size=chunk,
+                                 initial_state=h0)
+        ea, er, ok = errors(y, want_y)
+        es = (state - want_s).abs().max().item()
+        smax = want_s.abs().max().item()
+        worst = max(worst, ea)
+        require(ok, f"ssd_scan {label} init={init}: y max abs err {ea:.4g}, "
+                f"max rel err {er:.4g} beyond {tol}")
+        require(es <= STATE_RTOL * smax and bool(torch.isfinite(y).all()),
+                f"ssd_scan {label} init={init}: state max abs err {es:.4g} "
+                f"(max |state| {smax:.4g}) beyond {tol}")
+        report(f"ssd_scan {label} B={bsz} H={h} P={p} N={n} chunk={chunk} "
+               f"init={init}: y max abs err {ea:.4g}, max rel err {er:.4g};"
+               f" state max abs err {es:.4g} of max {smax:.4g} ({tol})")
+    report(f"ssd_scan checks: {len(cases)} passed; max abs err {worst:.4g}")
+    return worst
+
+
+def serve(cfg, params, prompts, dev, report, counters, expected) -> dict:
+    """Serve ``prompts`` x MAX_NEW tokens after ``warmup()``.  ``counters``
+    maps each kernel of the path to its launch counter, zeroed just before
+    the serve and read just after; ``expected(decode_steps, chunks)``
+    gives each kernel's launch count for the decode steps and prefill
+    chunk sizes run, and a line that says why."""
     import torch
     from repro_torch.core import cost_model as cm
-    from repro_torch.kernels import block_matmul as bm
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.engine import Request, ServingEngine
 
     engine = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
@@ -195,18 +278,18 @@ def serve(cfg, params, prompts, dev, report) -> dict:
     t0 = time.perf_counter()
     stats = engine.warmup()
     torch.cuda.synchronize()
-    report(f"warmup: {time.perf_counter() - t0:.2f} s, {stats}")
+    report(f"{cfg.name} warmup: {time.perf_counter() - t0:.2f} s, {stats}")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(prompts)]
     levels = [cm.grid_point(i) for i in (0, 5, 9)]
     syncs0, switches0 = engine.host_syncs, engine.level_switches
     builds0, tokens0 = engine.version_cache.traces, engine.tokens_decoded
-    chunks0 = engine.prefill_chunks
     torch.cuda.reset_peak_memory_stats()
-    bm.LAUNCHES.clear()
-    fa.LAUNCHES.clear()
+    for c in counters.values():
+        c.clear()
     pending = collections.deque(reqs)
     quanta = finishing_prefills = decode_steps = 0
+    chunks: list[int] = []
     quantum_ms, quantum_tokens = [], 0
     t_start = time.perf_counter()
     turn = 0
@@ -214,7 +297,9 @@ def serve(cfg, params, prompts, dev, report) -> dict:
         while pending and engine.admit_request(pending[0]):
             pending.popleft()
         while engine.prefill_pending:
-            finishing_prefills += engine.prefill_step().finished
+            pq = engine.prefill_step()
+            chunks.append(pq.chunk)
+            finishing_prefills += pq.finished
         engine.set_interference_level(levels[turn % len(levels)])
         turn += 1
         tq = time.perf_counter()
@@ -227,8 +312,7 @@ def serve(cfg, params, prompts, dev, report) -> dict:
             quantum_tokens += int(handle.n_left.sum())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {"block_matmul": dict(bm.LAUNCHES),
-                "flash_attention": dict(fa.LAUNCHES)}
+    launches = {name: dict(c) for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     syncs = engine.host_syncs - syncs0
     for r in reqs:
@@ -237,78 +321,82 @@ def serve(cfg, params, prompts, dev, report) -> dict:
     require(syncs == quanta + finishing_prefills,
             f"{syncs} host syncs for {quanta} quanta + "
             f"{finishing_prefills} finishing prefills")
-    require(engine.level_switches - switches0 >= 3,
-            f"{engine.level_switches - switches0} level switches")
     require(engine.version_cache.traces == builds0,
             "the serve built a version after warmup")
-    # every forward pass (a decode step or a prefill chunk) runs each
-    # layer's three MLP GEMMs and its attention through the kernels
-    passes = decode_steps + engine.prefill_chunks - chunks0
-    per_pass = {"block_matmul": 3 * cfg.num_layers,
-                "flash_attention": cfg.num_layers}
+    require(engine.level_switches - switches0 >= 3,
+            f"{engine.level_switches - switches0} level switches")
+    want, why = expected(decode_steps, chunks)
     for name, per_tile in launches.items():
         n = sum(per_tile.values())
         require(n > 0, f"{name} never launched")
-        require(n == per_pass[name] * passes,
-                f"{name}: {n} launches for {passes} forward passes, "
-                f"expected {per_pass[name]} per pass")
+        require(n == want[name], f"{name}: {n} launches, expected "
+                f"{want[name]} ({why[name]})")
     tokens = engine.tokens_decoded - tokens0
     out = {
-        "requests": len(reqs), "tokens": tokens, "wall_s": wall,
-        "tokens_per_s": tokens / wall,
+        "model": cfg.name, "requests": len(reqs), "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
         "decode_tokens_per_s": quantum_tokens / (sum(quantum_ms) / 1e3),
         "quanta": quanta, "quantum_ms_median": statistics.median(quantum_ms),
-        "quantum_ms": quantum_ms,
-        "prefill_chunks": engine.prefill_chunks - chunks0,
-        "decode_steps": decode_steps, "launches_per_pass": per_pass,
-        "host_syncs": syncs, "level_switches":
-            engine.level_switches - switches0,
+        "quantum_ms": quantum_ms, "prefill_chunks": len(chunks),
+        "prefill_chunk_sizes": chunks, "decode_steps": decode_steps,
+        "expected_launches": want, "host_syncs": syncs,
+        "level_switches": engine.level_switches - switches0,
         "max_memory_allocated": peak,
         "launches": {k: {str(t): n for t, n in v.items()}
                      for k, v in launches.items()},
     }
-    report(f"serve: {len(reqs)} requests x {MAX_NEW + 1} tokens, "
+    report(f"serve {cfg.name}: {len(reqs)} requests x {MAX_NEW + 1} tokens, "
            f"{tokens} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} "
            f"tokens/s; {quanta} quanta, median {out['quantum_ms_median']:.2f}"
            f" ms/quantum ({out['decode_tokens_per_s']:.1f} decode tokens/s);"
            f" {syncs} host syncs; {out['level_switches']} level switches; "
            f"max_memory_allocated {peak / 2**30:.2f} GiB")
     for name, per_tile in launches.items():
-        report(f"launches {name}: {sum(per_tile.values())} "
-               f"({per_pass[name]} per forward pass x {passes} passes = "
-               f"{decode_steps} decode steps + {out['prefill_chunks']} "
-               "prefill chunks); by tile "
-               + ", ".join(f"{t}: {n}" for t, n in sorted(per_tile.items())))
+        report(f"launches {name}: {sum(per_tile.values())} ({why[name]}); "
+               "by tile " + ", ".join(f"{t}: {n}" for t, n in
+                                       sorted(per_tile.items())))
     return engine, out
 
 
-def profile_quantum(engine, prompts, report) -> dict:
-    """Where one full 8-step decode quantum spends its time: device
-    kernel time by kernel (torch.profiler's CUDA activity) against the
-    host wall of the quantum.  Four fresh requests fill the warm engine;
-    one quantum runs unprofiled first, and its wall is the denominator of
-    the idle share (the profiler's own host cost inflates the profiled
-    quantum's wall, so the idle share under the profiler is an upper
-    bound)."""
+def dense_launches(cfg):
+    """Every forward pass (a decode step or a prefill chunk) runs each
+    layer's three MLP GEMMs and its attention through the kernels."""
+    def expected(decode_steps, chunks):
+        passes = decode_steps + len(chunks)
+        per = {"block_matmul": 3 * cfg.num_layers,
+               "flash_attention": cfg.num_layers}
+        return ({k: v * passes for k, v in per.items()},
+                {k: f"{v} per forward pass x {passes} passes = "
+                 f"{decode_steps} decode steps + {len(chunks)} prefill "
+                 "chunks" for k, v in per.items()})
+    return expected
+
+
+def ssm_launches(cfg):
+    """Every prefill chunk of two or more tokens runs the scan once per
+    layer; a one-token chunk and every decode step run the plain decode
+    step (the reference has no kernel there)."""
+    def expected(decode_steps, chunks):
+        scan = sum(c >= 2 for c in chunks)
+        return ({"ssd_scan": cfg.num_layers * scan},
+                {"ssd_scan": f"{cfg.num_layers} per prefill chunk of >= 2 "
+                 f"tokens x {scan} chunks; {len(chunks) - scan} one-token "
+                 f"chunks and {decode_steps} decode steps run the decode "
+                 "step"})
+    return expected
+
+
+def device_profile(fn, groups: dict) -> dict:
+    """Run ``fn`` (which ends in a host sync) under torch.profiler:
+    host wall, device time by kernel group (``groups`` maps a group to a
+    substring of its kernels' names) and the number of device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import cost_model as cm
-    from repro_torch.serving.engine import Request
 
-    engine.set_interference_level(cm.grid_point(0))
-    for i, p in enumerate(prompts[:BATCH_SLOTS]):
-        require(engine.admit_request(Request(
-            rid=100 + i, prompt=p, max_new_tokens=4 * QUANTUM), drain=True),
-            "profile: no free slot")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.step_quantum(QUANTUM)
-    torch.cuda.synchronize()
-    unprofiled_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.step_quantum(QUANTUM)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel: dict[str, float] = collections.Counter()
@@ -317,44 +405,104 @@ def profile_quantum(engine, prompts, report) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.time_range.elapsed_us()
             n_device_ops += 1
-    busy_us = sum(by_kernel.values())
-    groups: dict[str, float] = collections.Counter()
+    by_group: dict[str, float] = collections.Counter()
     for name, us in by_kernel.items():
-        key = ("block_matmul" if "block_matmul_kernel" in name else
-               "flash_attention" if "flash_attention_kernel" in name else
-               "other")
-        groups[key] += us
+        by_group[next((g for g, sub in groups.items() if sub in name),
+                      "other")] += us
     others = sorted(((us, n) for n, us in by_kernel.items()
-                     if "block_matmul_kernel" not in n
-                     and "flash_attention_kernel" not in n), reverse=True)
+                     if not any(sub in n for sub in groups.values())),
+                    reverse=True)
+    return {"wall_us": wall_us, "busy_us": sum(by_kernel.values()),
+            "n_device_ops": n_device_ops, "by_group": by_group,
+            "others": others}
+
+
+def timed(fn) -> float:
+    """Host wall of ``fn`` in µs, synchronized at both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6
+
+
+def profile_summary(what, unprofiled_us, prof, steps, report) -> dict:
+    busy_us = prof["busy_us"]
     out = {"wall_ms": unprofiled_us / 1e3,
-           "profiled_wall_ms": wall_us / 1e3,
+           "profiled_wall_ms": prof["wall_us"] / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": (max(0.0, 1.0 - busy_us / unprofiled_us)
                                  if busy_us else None),
-           "device_idle_share_profiled": (1.0 - busy_us / wall_us
+           "device_idle_share_profiled": (1.0 - busy_us / prof["wall_us"]
                                           if busy_us else None),
-           "device_ops_per_step": n_device_ops / QUANTUM,
-           "device_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
+           "device_ops_per_step": prof["n_device_ops"] / steps,
+           "device_ms_by_group": {k: v / 1e3
+                                  for k, v in prof["by_group"].items()},
            "top_other_kernels_ms": [(n[:120], us / 1e3)
-                                    for us, n in others[:6]]}
+                                    for us, n in prof["others"][:6]]}
     if not busy_us:
-        report("profile: torch.profiler recorded no device time "
+        report(f"profile {what}: torch.profiler recorded no device time "
                "(device idle share not measured)")
         return out
-    report(f"profile: one {QUANTUM}-step quantum at level 0, 4 rows: "
-           f"wall {out['wall_ms']:.2f} ms ({out['profiled_wall_ms']:.2f} "
-           f"ms under the profiler), device busy "
-           f"{out['device_busy_ms']:.2f} ms, idle share "
-           f"{out['device_idle_share']:.3f} ("
-           f"{out['device_idle_share_profiled']:.3f} under the profiler); "
-           f"{out['device_ops_per_step']:.0f} device ops per decode step; "
-           "device ms "
-           + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+    report(f"profile {what}: wall {out['wall_ms']:.2f} ms "
+           f"({out['profiled_wall_ms']:.2f} ms under the profiler), device "
+           f"busy {out['device_busy_ms']:.2f} ms, idle share "
+           f"{out['device_idle_share']:.3f} "
+           f"({out['device_idle_share_profiled']:.3f} under the profiler); "
+           f"{out['device_ops_per_step']:.0f} device ops per step; device ms "
+           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                out["device_ms_by_group"].items())))
-    report("profile: largest other kernels (ms): " + "; ".join(
+    report(f"profile {what}: largest other kernels (ms): " + "; ".join(
         f"{n[:60]} {ms:.3f}" for n, ms in out["top_other_kernels_ms"]))
     return out
+
+
+def profile_quantum(engine, prompts, report, groups) -> dict:
+    """Where one full 8-step decode quantum spends its time: device
+    kernel time by kernel (torch.profiler's CUDA activity) against the
+    host wall of the quantum.  Four fresh requests fill the warm engine;
+    one quantum runs unprofiled first, and its wall is the denominator of
+    the idle share (the profiler's own host cost inflates the profiled
+    quantum's wall, so the idle share under the profiler is an upper
+    bound)."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    engine.set_interference_level(cm.grid_point(0))
+    for i, p in enumerate(prompts[:BATCH_SLOTS]):
+        require(engine.admit_request(Request(
+            rid=100 + i, prompt=p, max_new_tokens=4 * QUANTUM), drain=True),
+            "profile: no free slot")
+    unprofiled_us = timed(lambda: engine.step_quantum(QUANTUM))
+    prof = device_profile(lambda: engine.step_quantum(QUANTUM), groups)
+    return profile_summary(f"{engine.cfg.name} one {QUANTUM}-step quantum "
+                           "at level 0, 4 rows", unprofiled_us, prof,
+                           QUANTUM, report)
+
+
+def profile_prefill_chunk(engine, prompt, report, groups) -> dict:
+    """One 16-token prefill chunk (a whole 16-token prompt: the chunk
+    ends in the admission's first-token sync), unprofiled and then
+    profiled, on fresh requests; their slots are released after."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    engine.set_interference_level(cm.grid_point(0))
+    walls = []
+    for rid in (200, 201):
+        require(engine.admit_request(Request(
+            rid=rid, prompt=prompt[:16], max_new_tokens=1)),
+            "profile: no free slot")
+        if not walls:
+            walls.append(timed(engine.prefill_step))
+        else:
+            prof = device_profile(engine.prefill_step, groups)
+    for slot, req in enumerate(engine.slot_req):
+        if req is not None and req.rid in (200, 201):
+            engine.release_slot(slot)
+    return profile_summary(f"{engine.cfg.name} one 16-token prefill chunk",
+                           walls[0], prof, 1, report)
 
 
 def whole_model_check(cfg, params, prompt, dev, report) -> dict:
@@ -384,6 +532,188 @@ def whole_model_check(cfg, params, prompt, dev, report) -> dict:
         require(diff <= LOGIT_RTOL * scale,
                 f"whole-model {name} logits drift {diff:.4g}")
     return results
+
+
+def whole_model_check_ssm(cfg, params, prompt, dev, report) -> dict:
+    """A monolithic prefill of ``len(prompt)`` tokens (three scan chunks
+    of 256) through the kernel and through the plain versions.
+
+    Layer by layer, each mixer gets the plain run's input once through
+    the kernel and once through the plain version: outputs and SSD
+    states must agree within LOGIT_RTOL of their largest entry (a wrong
+    kernel is off by O(1)).  End to end, 48 residual layers of random
+    weights amplify bf16 rounding flips, so the layer-by-layer check is
+    the gate: the end-to-end drift of the logits and of the last layer's
+    final SSD state is reported beside a yardstick (the same plain model
+    with the scan cut into chunks of 128 instead of 256: the same
+    function, summed in another order) but not bounded; the logits must
+    be finite and of shape (1, vocab).  Then the engine's chunked schedule
+    (16-token chunks, padded tail) runs over the same prompt through the
+    kernel; its first-token logits are reported against the monolithic
+    ones."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map_with_path
+
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    # layer by layer, on the plain run's residual stream
+    x = L.embed(params["embed"], toks, cfg)
+    worst_out = worst_state = 0.0
+    for i in range(cfg.num_layers):
+        p = tree_map_with_path(lambda _, a: a[i], params["blocks"]["ssm"])
+        xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
+        outs = {}
+        for kern in (True, False):
+            cache = tree_map_with_path(lambda _, a: a[0], Model(cfg).init_cache(
+                1, MAX_LEN, dev)["blocks"]["ssm"])
+            before = ssd.launch_count()
+            out = S.mamba2_block(p["mixer"], xa, cfg=cfg, cache=cache,
+                                 use_kernel_hook=kern)
+            torch.cuda.synchronize()
+            require(ssd.launch_count() - before == int(kern),
+                    f"layer {i}: ssd_scan launches")
+            outs[kern] = (out, cache["ssd"])
+        for j, what in ((0, "output"), (1, "SSD state")):
+            d = (outs[True][j].float() - outs[False][j].float()).abs().max()
+            m = outs[False][j].float().abs().max()
+            rel = (d / m).item()
+            require(rel <= LOGIT_RTOL and bool(torch.isfinite(
+                outs[True][j]).all()), f"layer {i} {what}: kernel vs "
+                f"plain max |diff| {d.item():.4g} of max {m.item():.4g}")
+            if j == 0:
+                worst_out = max(worst_out, rel)
+            else:
+                worst_state = max(worst_state, rel)
+        x = x + outs[False][0]
+    report(f"whole model {cfg.name}, layer by layer on {len(prompt)} "
+           f"tokens: kernel vs plain mixer, max |diff| / max |plain| "
+           f"{worst_out:.4g} (outputs), {worst_state:.4g} (SSD states); "
+           f"tolerance {LOGIT_RTOL}")
+    # end to end, against the re-chunked plain yardstick
+    cfg128 = dataclasses.replace(
+        cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=128))
+    runs = {"kernel": Model(cfg), "plain": Model(cfg, use_kernels=False),
+            "plain chunk 128": Model(cfg128, use_kernels=False)}
+    logits, states = {}, {}
+    for name, m in runs.items():
+        before = ssd.launch_count()
+        logits[name], cache = m.prefill(params, {"tokens": toks},
+                                        m.init_cache(1, MAX_LEN, dev))
+        torch.cuda.synchronize()
+        launched = ssd.launch_count() - before
+        require(launched == (cfg.num_layers if name == "kernel" else 0),
+                f"monolithic prefill ({name}) launched ssd_scan {launched} "
+                "times")
+        states[name] = cache["blocks"]["ssm"]["ssd"][-1]
+
+    def drift(t, a, b):
+        return (t[a] - t[b]).abs().max().item()
+    diff, ydiff = drift(logits, "kernel", "plain"), drift(
+        logits, "plain chunk 128", "plain")
+    sdiff, ysdiff = drift(states, "kernel", "plain"), drift(
+        states, "plain chunk 128", "plain")
+    scale = logits["plain"].abs().max().item()
+    smax = states["plain"].abs().max().item()
+    same_top = bool((logits["kernel"].argmax(-1) ==
+                     logits["plain"].argmax(-1)).all())
+    report(f"whole model {cfg.name} monolithic prefill of {len(prompt)} "
+           f"tokens: max |kernels - plain| logits {diff:.4g}, last layer's "
+           f"SSD state {sdiff:.4g}; yardstick (plain, chunk 128 vs 256) "
+           f"{ydiff:.4g} and {ysdiff:.4g}; max |logit| {scale:.4g}, max "
+           f"|state| {smax:.4g}; same argmax: {same_top}")
+    require(tuple(logits["kernel"].shape) == (1, cfg.vocab_size) and
+            bool(torch.isfinite(logits["kernel"]).all()),
+            "kernel logits not finite or of the wrong shape")
+    kern = runs["kernel"]
+    row = kern.init_cache(1, MAX_LEN, dev)
+    t0 = 0
+    while t0 < len(prompt):
+        valid = min(16, len(prompt) - t0)
+        c = 1 << (valid - 1).bit_length()
+        chunk = torch.zeros((1, c), dtype=torch.int64, device=dev)
+        chunk[0, :valid] = toks[0, t0:t0 + valid]
+        chunked, row = kern.prefill_chunk(params, {"tokens": chunk}, row, t0,
+                                          valid)
+        t0 += valid
+    cdiff = (chunked - logits["kernel"]).abs().max().item()
+    csame = bool((chunked.argmax(-1) == logits["kernel"].argmax(-1)).all())
+    require(bool(torch.isfinite(chunked).all()), "chunked logits not finite")
+    report(f"whole model {cfg.name}: chunked (16-token chunks) vs monolithic "
+           f"first-token logits max |diff| {cdiff:.4g}, same argmax: {csame}")
+    return {"layer_max_rel_diff_output": worst_out,
+            "layer_max_rel_diff_state": worst_state,
+            "max_abs_diff": diff, "yardstick_max_abs_diff": ydiff,
+            "max_abs_logit": scale, "same_argmax": same_top,
+            "state_max_abs_diff": sdiff, "yardstick_state_max_abs_diff":
+                ysdiff, "state_max_abs": smax,
+            "chunked_vs_monolithic_max_abs_diff": cdiff,
+            "chunked_same_argmax": csame}
+
+
+def ssd_bound(bsz, l, h, p, n, q, with_init, groups=None
+              ) -> tuple[float, str, int, int]:
+    """The least time for one scan: each input byte read once (x, dt, a,
+    B, C, the initial state) and each output written once (y, the final
+    state) at 3.35 TB/s, against the causal products of each chunk of R
+    rows (C.B^T and the score-weighted x over j <= i, C.h and the state
+    update over all rows) at 989 TFLOP/s (the inputs are bf16).  B and C
+    are counted as the kernel receives them, one copy per head, or, with
+    ``groups``, once per group (what a kernel reading the model's
+    un-expanded B and C would move)."""
+    bc_heads = h if groups is None else groups
+    nbytes = bsz * l * (h * (2 * p * 2 + 4) + bc_heads * 2 * n * 2) + \
+        h * 4 + bsz * h * p * n * 4 * (1 + int(with_init))
+    flops = 0
+    for c0 in range(0, l, q):
+        r = min(q, l - c0)
+        flops += r * (r + 1) // 2 * (2 * n + 2 * p) + 4 * r * p * n
+    flops *= bsz * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def ssd_timings(dev, gen, report) -> list[dict]:
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_ref
+    import torch
+
+    scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    rows = []
+    # the serve's prefill chunk and the monolithic prompt, both carrying
+    # the cache's state in (the model always passes it)
+    for label, l in (("serve chunk", 16), ("monolithic", MONO_LEN)):
+        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, 1, l, 48, 64, 128, True)
+        q = min(256, l)
+        bound_ms, bound_by, nbytes, flops = ssd_bound(1, l, 48, 64, 128, q,
+                                                      True)
+        row = {"name": "ssd_scan", "shape": label, "b": 1, "l": l,
+               "h": 48, "p": 64, "n": 128, "chunk": q,
+               "ms": cold_ms(lambda: ssd.ssd_scan(
+                   x, dt, a, b, c, chunk_size=256, initial_state=h0), 20,
+                   flush),
+               "plain_ms": cold_ms(lambda: ssd_ref(
+                   x, dt, a, b, c, chunk_size=256, initial_state=h0), 20,
+                   flush),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "bound_ms_per_group": ssd_bound(1, l, 48, 64, 128, q, True,
+                                               groups=1)[0]}
+        rows.append(row)
+        report(f"time ssd_scan {label} B=1 L={l} H=48 P=64 N=128 chunk={q}: "
+               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+               f"no library call, bound {bound_ms:.5f} ms ({bound_by}: "
+               f"{nbytes} bytes, {flops} flops); with B and C read once "
+               f"per group {row['bound_ms_per_group']:.5f} ms")
+    return rows
 
 
 def timings(dev, gen, report) -> list[dict]:
@@ -514,35 +844,70 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     worst = check_kernels(dev, gen, report)
+    worst["ssd_scan"] = check_ssd(dev, gen, report)
 
-    cfg = get_config("gemma-2b")
-    t0 = time.perf_counter()
-    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(
-        args.seed), dev)
-    torch.cuda.synchronize()
-    report(f"gemma-2b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; weights made on the "
-           f"card in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPT_LENS]
-    engine, served = serve(cfg, params, prompts, dev, report)
-    prof = profile_quantum(engine, prompts, report)
-    del engine
-    model_check = whole_model_check(cfg, params, prompts[1], dev, report)
-    times = timings(dev, gen, report)
+    served, prof, model_check = {}, {}, {}
+    for name in ("gemma-2b", "mamba2-780m"):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
+        torch.cuda.synchronize()
+        widths = (f"d_ff {cfg.d_ff}" if cfg.ssm is None else
+                  f"d_inner {cfg.ssm.d_inner}, {cfg.ssm.num_heads} SSD "
+                  f"heads x {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}")
+        report(f"{name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+               f"{widths}, vocab {cfg.vocab_size}; weights made on the "
+               f"card in {time.perf_counter() - t0:.1f} s")
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in PROMPT_LENS]
+        if cfg.ssm is None:
+            counters = {"block_matmul": bm.LAUNCHES,
+                        "flash_attention": fa.LAUNCHES}
+            groups = {"block_matmul": "block_matmul_kernel",
+                      "flash_attention": "flash_attention_kernel"}
+            expected = dense_launches(cfg)
+        else:
+            counters, groups = ({"ssd_scan": ssd.LAUNCHES},
+                                {"ssd_scan": "ssd_scan_kernel"})
+            expected = ssm_launches(cfg)
+        engine, served[name] = serve(cfg, params, prompts, dev, report,
+                                     counters, expected)
+        prof[name] = {}
+        if cfg.ssm is not None:
+            prof[name]["prefill_chunk"] = profile_prefill_chunk(
+                engine, prompts[1], report, groups)
+        prof[name]["decode_quantum"] = profile_quantum(engine, prompts,
+                                                       report, groups)
+        del engine
+        if cfg.ssm is None:
+            model_check[name] = whole_model_check(cfg, params, prompts[1],
+                                                  dev, report)
+        else:
+            model_check[name] = whole_model_check_ssm(
+                cfg, params, rng.integers(0, cfg.vocab_size, MONO_LEN),
+                dev, report)
+        del params
+        torch.cuda.empty_cache()
+    times = timings(dev, gen, report) + ssd_timings(dev, gen, report)
 
     kernels = []
-    for name, src, replaces in (
+    for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
-             "src/repro/kernels/block_matmul.py:25"),
+             "src/repro/kernels/block_matmul.py:25", "gemma-2b"),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:31")):
+             "src/repro/kernels/flash_attention.py:31", "gemma-2b"),
+            ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:23", "mamba2-780m")):
         row = next(r for r in times if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": sum(served["launches"][name].values()),
+            "launches": sum(served[model]["launches"][name].values()),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -35,11 +35,12 @@ cache_from_numpy = params_from_numpy
 
 
 def cache_to_numpy(tree):
-    """A torch cache tree as numpy; bf16 leaves come back as float32
-    (exact), so no bf16 numpy dtype is needed."""
+    """A torch cache tree as numpy copies (the port updates caches in
+    place, so a view would change under the caller); bf16 leaves come
+    back as float32 (exact), so no bf16 numpy dtype is needed."""
     def one(_, t):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.numpy()
+        return np.array(t.numpy())
     return tree_map_with_path(one, tree)

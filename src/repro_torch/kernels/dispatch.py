@@ -122,3 +122,15 @@ def get_attention() -> Callable:
             q, k, v, q_positions=q_positions, kv_valid_len=kv_valid_len,
             window=window, softcap=softcap, **tile_overrides("attention"))
     return attn
+
+
+def get_ssd() -> Callable:
+    """The Mamba-2 chunked scan through ``ssd_scan`` at the model's chunk.
+    No tile table is read: the level tiles name no ``"ssd"`` entry, so a
+    level switch changes no kernel on this path."""
+    from repro_torch.kernels import ops
+
+    def ssd(x, dt, a, b, c, *, chunk_size, initial_state=None):
+        return ops.ssd_scan(x, dt, a, b, c, chunk_size=chunk_size,
+                            initial_state=initial_state)
+    return ssd

@@ -1,13 +1,15 @@
 """Adapters from model-side calling conventions to the kernels' layouts
 (the dispatch contract of ``repro.kernels.ops``): leading dimensions of a
-matmul input are flattened, and attention takes ``q_positions[..., 0]``
-as each row's offset (every call site uses row-contiguous positions)."""
+matmul input are flattened, attention takes ``q_positions[..., 0]``
+as each row's offset (every call site uses row-contiguous positions), and
+the SSD scan takes the reference's layouts as they are."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import block_matmul as _bm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def block_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
@@ -29,3 +31,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention(q, k, v, offset=offset,
                                kv_valid_len=kv_valid_len, bq=bq, bkv=bkv,
                                window=window, softcap=softcap)
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk_size: int = 256, initial_state=None):
+    """x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,H,N) -> (y, state)."""
+    return _ssd.ssd_scan(x, dt, a, b, c, chunk_size=chunk_size,
+                         initial_state=initial_state)

@@ -7,5 +7,6 @@ from __future__ import annotations
 from repro_torch.kernels.block_matmul import matmul_plain as matmul_ref
 from repro_torch.kernels.flash_attention import \
     attention_plain as attention_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_ref
 
-__all__ = ["matmul_ref", "attention_ref"]
+__all__ = ["matmul_ref", "attention_ref", "ssd_ref"]

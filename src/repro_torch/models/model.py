@@ -1,12 +1,14 @@
-"""Model assembly of the PyTorch port, dense family (``repro.models.model``).
+"""Model assembly of the PyTorch port, dense and ssm families
+(``repro.models.model``).
 
 Parameters and caches keep the reference's stacked leading ``"layers"``
-axis (``blocks/dense/...``), so their path strings and shapes line up
-with the JAX trees; the layers run as a Python loop over views of the
-stacked tensors.  Caches are updated in place: the decode entry points
-return the cache they were given, and a fused decode quantum masks the
-cache write of every row past its step budget instead of reverting it
-afterwards.
+axis (``blocks/dense/...``, ``blocks/ssm/...``), so their path strings
+and shapes line up with the JAX trees; the layers run as a Python loop
+over views of the stacked tensors.  Caches are updated in place: the
+decode entry points return the cache they were given, and a fused decode
+quantum masks the cache write of every row past its step budget (KV rows,
+conv and SSD state) instead of reverting it afterwards as the reference's
+``select_cache_rows`` does.
 
 Inputs dict: ``{"tokens": (B,S) int}``; decode inputs ``{"tokens": (B,)}``
 with a position ``t`` — a Python int (all rows aligned) or a (B,) tensor
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params, \
     tree_map_with_path
 
@@ -38,7 +41,14 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
                                init=s.init, init_scale=s.init_scale), tree)
 
 
+# the families the port serves; each stacks one block kind of its name
+FAMILIES = ("dense", "ssm")
+
+
 def _block_specs(cfg: ModelConfig) -> dict:
+    if cfg.family == "ssm":
+        return {"ln1": L.norm_specs(cfg),
+                "mixer": ssm_mod.ssm_specs(cfg, cfg.ssm)}
     return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
             "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
 
@@ -53,19 +63,32 @@ def _kv_specs(cfg: ModelConfig, batch: int, t_max: int) -> dict:
                            init="zeros")}
 
 
+def _ssm_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    ssm = cfg.ssm
+    conv_ch = ssm.d_inner + 2 * ssm.num_groups * ssm.state_dim
+    return {"conv": ParamSpec((batch, ssm.conv_width - 1, conv_ch),
+                              cfg.cache_dtype(), ("batch", None, "inner"),
+                              init="zeros"),
+            "ssd": ParamSpec((batch, ssm.num_heads, ssm.head_dim,
+                              ssm.state_dim), torch.float32,
+                             ("batch", "inner", None, "state"),
+                             init="zeros")}
+
+
 def _layer(tree: PyTree, i: int) -> PyTree:
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return tree_map_with_path(lambda _, a: a[i], tree)
 
 
 class TorchModel:
-    """The dense decoder (``family == "dense"``)."""
+    """The dense decoder (``family == "dense"``) and the attention-free
+    Mamba-2 stack (``family == "ssm"``)."""
 
     def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves the dense family only "
-                f"(got {cfg.family!r})")
+                f"{cfg.name}: the port serves the {FAMILIES} families "
+                f"only (got {cfg.family!r})")
         self.cfg = cfg
         # False runs every kernel's plain version, on any device (the
         # on-card whole-model check compares the two)
@@ -75,7 +98,7 @@ class TorchModel:
     def param_specs(self) -> dict:
         cfg = self.cfg
         return {"embed": L.embed_specs(cfg),
-                "blocks": stack_specs({"dense": _block_specs(cfg)},
+                "blocks": stack_specs({cfg.family: _block_specs(cfg)},
                                       cfg.num_layers),
                 "final_norm": L.norm_specs(cfg)}
 
@@ -85,9 +108,11 @@ class TorchModel:
     # -- caches ------------------------------------------------------------
     # veltair: ignore[paged-leaf-coverage] the port's KV cache is dense only (paging is a later slice of the port); the reference's Model.cache_specs anchor is another class
     def cache_specs(self, batch: int, t_max: int) -> dict:
-        return {"blocks": stack_specs(
-            {"dense": _kv_specs(self.cfg, batch, t_max)},
-            self.cfg.num_layers)}
+        cfg = self.cfg
+        leaves = (_ssm_state_specs(cfg, batch) if cfg.family == "ssm"
+                  else _kv_specs(cfg, batch, t_max))
+        return {"blocks": stack_specs({cfg.family: leaves},
+                                      cfg.num_layers)}
 
     def init_cache(self, batch: int, t_max: int, device) -> PyTree:
         return tree_map_with_path(
@@ -103,14 +128,24 @@ class TorchModel:
             return t0.to(device=device, dtype=torch.int64)[:, None] + ar
         return (t0 + ar)[None, :].expand(b, s)
 
-    def _run_blocks(self, params, x, *, positions, cache, t, live=None):
+    def _run_blocks(self, params, x, *, positions, cache, t, live=None,
+                    valid_len=None):
+        """``valid_len`` (a host int, chunked prefill) reaches the ssm
+        mixer, for which the tokens past it must be exact no-ops; a
+        padded KV row needs nothing (it stays causally invisible until
+        the decode step at its position overwrites it)."""
         cfg = self.cfg
-        blocks = params["blocks"]["dense"]
-        caches = cache["blocks"]["dense"] if cache is not None else None
+        blocks = params["blocks"][cfg.family]
+        caches = cache["blocks"][cfg.family] if cache is not None else None
         for i in range(cfg.num_layers):
             p = _layer(blocks, i)
             c = _layer(caches, i) if caches is not None else None
             xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
+            if cfg.family == "ssm":
+                x = x + ssm_mod.mamba2_block(
+                    p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
+                    live=live, use_kernel_hook=self.use_kernels)
+                continue
             x = x + L.attention(p["attn"], xa, cfg=cfg, positions=positions,
                                 cache=c, cache_index=t, live=live,
                                 use_kernel_hook=self.use_kernels)
@@ -139,8 +174,10 @@ class TorchModel:
         position ``t0``: ``inputs["tokens"]`` is (B, C) with only the
         first ``valid_len`` tokens real.  The padded tail writes KV rows
         that stay causally invisible until the decode step at their
-        position overwrites them, so chaining chunks equals one
-        :meth:`prefill`.  ``t0`` and ``valid_len`` are host ints (no
+        position overwrites them, and leaves the conv and SSD state as of
+        the last real token, so chaining chunks equals one
+        :meth:`prefill` (for the ssm family up to the scan's fp32
+        summation order).  ``t0`` and ``valid_len`` are host ints (no
         device sync to index).  -> (logits (B,V) at the last valid token,
         cache)."""
         toks = inputs["tokens"]
@@ -148,7 +185,7 @@ class TorchModel:
         positions = self._default_positions(b, s, t0, toks.device)
         x = L.embed(params["embed"], toks, self.cfg)
         x = self._run_blocks(params, x, positions=positions, cache=cache,
-                             t=t0)
+                             t=t0, valid_len=valid_len)
         return self._logits(params, x[:, valid_len - 1:valid_len]), cache
 
     def decode_step(self, params, inputs, cache, t, live=None):

@@ -46,7 +46,8 @@ def _torch_spec_table(specs):
             for p, s in tree_leaves_with_path(specs)}
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "starcoder2-3b",
+                                  "mamba2-780m"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_param_and_cache_specs_match_reference(arch, reduced):
     """Paths, shapes, dtypes, axes and initializers, at full width too
@@ -169,3 +170,36 @@ def test_reference_hot_path_slice_unchanged_by_the_port():
     assert len(alone) > 100
     assert together == alone, (sorted(alone - together),
                                sorted(together - alone))
+
+
+def test_bridge_round_trip_carries_the_ssm_leaves():
+    """The fp32 leaves of the Mamba-2 mixer (conv_w, conv_b, A_log,
+    dt_bias, D, the gated norm's scale) cross as fp32, the bf16
+    projections as bf16, every value exact; the fp32 SSD state and the
+    bf16 conv state of a cache cross both ways unchanged."""
+    jmodel = build_model(jax_reduced_config("mamba2-780m"))
+    jparams = jmodel.init(jax.random.PRNGKey(2))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
+    back = dict((path_str(p), t) for p, t in tree_leaves_with_path(tparams))
+    assert set(back) == {_path_str(p) for p, _ in flat}
+    fp32 = {"conv_w", "conv_b", "A_log", "dt_bias", "D", "scale"}
+    for p, leaf in flat:
+        t = back[_path_str(p)]
+        name = _path_str(p).rsplit("/", 1)[-1]
+        assert t.dtype == (torch.float32 if name in fp32 else
+                           torch.bfloat16), _path_str(p)
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+    rng = np.random.default_rng(0)
+    jcache = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
+        jmodel.init_cache(2, 8))
+    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache))
+    assert tcache["blocks"]["ssm"]["ssd"].dtype == torch.float32
+    assert tcache["blocks"]["ssm"]["conv"].dtype == torch.bfloat16
+    out = cache_to_numpy(tcache)
+    for name in ("conv", "ssd"):
+        np.testing.assert_array_equal(
+            out["blocks"]["ssm"][name],
+            np.asarray(jcache["blocks"]["ssm"][name], np.float32))

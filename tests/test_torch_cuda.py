@@ -9,7 +9,9 @@ PyTorch for CUDA and no JAX:
 Tolerances: the kernels and their plain versions both accumulate in fp32
 and round the output to bf16 once; they differ only in summation order,
 so at most a rounding flip of the bf16 output (2e-2 relative and
-absolute covers one bf16 ulp at the values drawn here).  The whole model
+absolute covers one bf16 ulp at the values drawn here).  The SSD scan's
+fp32 state differs only in summation order (the kernel's cumsum of dt*a
+is a warp-level prefix sum): 1e-3 of its largest entry.  The whole model
 compares logits after three residual layers of bf16 activations at 5e-2.
 """
 import numpy as np
@@ -20,12 +22,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, matmul_ref, \
+    ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import (H100_LEVEL_TILES, Request,  # noqa: E402
                                         ServingEngine)
 
 KERNEL_TOL = 2e-2
+STATE_TOL = 1e-3
 LOGIT_TOL = 5e-2
 
 
@@ -120,3 +125,92 @@ def test_engine_on_the_card_goes_through_the_kernels(cuda_device):
     engine.run_to_completion(reqs)
     assert all(r.done and len(r.output) == 7 for r in reqs)
     assert bm.launch_count() > 0 and fa.launch_count() > 0
+
+
+def _ssd_inputs(g, dev, bsz, l, h, p, n, with_init):
+    x = torch.randn(bsz, l, h, p, generator=g, device=dev).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, l, h, generator=g, device=dev) - 1.0)
+    a = -torch.rand(h, generator=g, device=dev) * 2.0 - 0.1
+    b = torch.randn(bsz, l, h, n, generator=g, device=dev).bfloat16()
+    c = torch.randn(bsz, l, h, n, generator=g, device=dev).bfloat16()
+    h0 = (torch.randn(bsz, h, p, n, generator=g, device=dev)
+          if with_init else None)
+    return x, dt, a, b, c, h0
+
+
+# (B, L, H, P, N, chunk, initial state): the serve's chunks at mamba2-780m
+# widths, a monolithic prompt of three chunks with a ragged tail, and
+# ragged small shapes (P and N no multiple of 16, L no multiple of Q)
+SSD_CASES = [(1, 16, 48, 64, 128, 256, True), (1, 2, 48, 64, 128, 256, True),
+             (1, 600, 48, 64, 128, 256, False),
+             (1, 600, 48, 64, 128, 256, True),
+             (4, 16, 48, 64, 128, 256, True),
+             (2, 37, 3, 20, 7, 16, True), (3, 5, 2, 33, 130, 4, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,l,h,p,n,chunk,with_init", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda_device, bsz, l, h, p, n, chunk,
+                                       with_init):
+    g = torch.Generator(device=cuda_device).manual_seed(l + h)
+    x, dt, a, b, c, h0 = _ssd_inputs(g, cuda_device, bsz, l, h, p, n,
+                                     with_init)
+    before = ssd.launch_count()
+    y, state = ssd.ssd_scan(x, dt, a, b, c, chunk_size=chunk,
+                            initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd.launch_count() == before + 1
+    want_y, want_s = ssd_ref(x, dt, a, b, c, chunk_size=chunk,
+                             initial_state=h0)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+    torch.testing.assert_close(
+        state, want_s, rtol=0,
+        atol=STATE_TOL * want_s.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, dt, a, b, c, h0 = _ssd_inputs(g, cuda_device, 1, 8, 2, 64, 128, True)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.float(), dt, a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x, dt, a, b.transpose(2, 3).contiguous().transpose(
+            2, 3), c)
+    with pytest.raises(ValueError, match="head_dim"):
+        xw = torch.zeros(1, 8, 2, 96, device=cuda_device,
+                         dtype=torch.bfloat16)
+        ssd.ssd_scan(xw, dt, a, b, c)
+    with pytest.raises(ValueError, match="shared"):
+        ssd.ssd_scan(*(t.repeat(1, 64, 1, 1) if t.ndim == 4 else
+                       t.repeat(1, 64, 1) if t.ndim == 3 else t
+                       for t in (x, dt, a, b, c)), chunk_size=512)
+
+
+@pytest.mark.cuda
+def test_mamba2_engine_on_the_card_goes_through_ssd_scan(cuda_device):
+    cfg = get_reduced_config("mamba2-780m")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    prompt = np.arange(1, 40, dtype=np.int32) * 7 % cfg.vocab_size
+    toks = torch.from_numpy(prompt.astype(np.int64))[None]
+    model = Model(cfg)
+    cpu_logits, _ = model.prefill(params, {"tokens": toks},
+                                  model.init_cache(1, 64, "cpu"))
+    engine = ServingEngine(cfg, params, batch_slots=2, max_len=64)
+    card_logits, _ = model.prefill(engine.params,
+                                   {"tokens": toks.to(cuda_device)},
+                                   model.init_cache(1, 64, cuda_device))
+    torch.testing.assert_close(card_logits.cpu(), cpu_logits,
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    engine.warmup()
+    ssd.LAUNCHES.clear()
+    reqs = [Request(rid=i, prompt=prompt[:n], max_new_tokens=6)
+            for i, n in enumerate((3, 39, 17))]
+    engine.run_to_completion(reqs)
+    assert all(r.done and len(r.output) == 7 for r in reqs)
+    # chunks of two or more tokens: 3 -> (4); 39 -> (16, 16, 8);
+    # 17 -> (16, 1), whose 1-token tail runs the decode step
+    assert ssd.launch_count() == cfg.num_layers * 5

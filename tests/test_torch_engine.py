@@ -1,5 +1,5 @@
 """The port's serving engine against the JAX engine on the CPU (reduced
-gemma-2b, the JAX parameters bridged over).
+gemma-2b and reduced mamba2-780m, the JAX parameters bridged over).
 
 Both engines serve the same schedules; the port must emit identical
 greedy tokens with the same number of host syncs.  Logits differ between
@@ -25,6 +25,7 @@ from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from repro_torch.serving.engine import H100_LEVEL_TILES  # noqa: E402
+from test_torch_model import MAMBA_STREAM_LEN, mamba_prompt  # noqa: E402
 
 PROMPT_LENS = (3, 7, 5)          # deliberately misaligned
 N_NEW = 4
@@ -194,3 +195,118 @@ def test_prompt_outside_vocab_or_length_is_refused(setup):
         with pytest.raises(ValueError):
             engine.admit_request(torch_engine.Request(rid=0, prompt=bad))
     assert engine.rejected_invalid == 3
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: reduced mamba2-780m
+# ---------------------------------------------------------------------------
+# The port's logits differ from the reference's by 1-2 bf16 ulps
+# (``tests/test_torch_model.py``), so the prompts are those whose reference
+# streams stay clear of near-ties there (``mamba_prompt``): every request
+# must give the reference's tokens, and everything the scheduler decides
+# (host syncs, chunks, padding, tokens decoded) must be equal.
+MAMBA_PROMPT_LENS = (3, 7, 5, 17, 13)       # 17: a 1-token tail chunk
+
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    jcfg = jax_reduced_config("mamba2-780m")
+    jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tcfg = get_reduced_config("mamba2-780m")
+    prompts = [mamba_prompt(n) for n in MAMBA_PROMPT_LENS]
+    assert max(MAX_NEW + (N_NEW,)) <= MAMBA_STREAM_LEN
+    sides = {"jax": (jax_engine, jcfg, jparams, {}),
+             "torch": (torch_engine, tcfg, tparams, {"device": "cpu"})}
+    return sides, prompts
+
+
+def test_mamba2_staggered_batching_matches_jax_engine(mamba_setup):
+    sides, prompts = mamba_setup
+    (je, jreqs), (te, treqs) = (_staggered_run(sides[s], prompts[:3])
+                                for s in ("jax", "torch"))
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert te.host_syncs == je.host_syncs
+    assert te.tokens_decoded == je.tokens_decoded
+    assert te.prefill_chunks == je.prefill_chunks
+    assert te.prefill_pad_tokens == je.prefill_pad_tokens
+
+
+def test_mamba2_quantum_schedule_matches_jax_engine(mamba_setup):
+    sides, prompts = mamba_setup
+    runs = {}
+    for name, side in sides.items():
+        mod = side[0]
+        engine = _engine(side, batch_slots=2, quantum_buckets=(2, 4))
+        reqs = [mod.Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts[2:], MAX_NEW))]
+        pending = list(reqs)
+        for k, level, admit in SCHEDULE:
+            if admit and pending and engine.admit_request(pending[0],
+                                                          drain=True):
+                pending.pop(0)
+            engine.set_interference_level(level)
+            engine.step_quantum(k)
+        assert all(r.done for r in reqs)
+        runs[name] = (engine, reqs)
+    (je, jreqs), (te, treqs) = runs["jax"], runs["torch"]
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert te.host_syncs == je.host_syncs
+    assert te.quantum_calls == je.quantum_calls
+    assert te.tokens_per_sync == je.tokens_per_sync
+    assert te.level_switches == je.level_switches
+    assert te.prefill_chunks == je.prefill_chunks
+
+
+def test_mamba2_chunked_prefill_equals_monolithic(mamba_setup):
+    """``tests/test_prefill_chunking.py``'s identity on the port: chunked,
+    padded admission (8-token chunks) gives the tokens of monolithic
+    admission under staggered admissions and mixed lengths."""
+    sides, prompts = mamba_setup
+    side = sides["torch"]
+    mono = _engine(side, batch_slots=2, chunked_prefill=False)
+    reqs_m = _staggered_reqs(mono, prompts)
+    chunk = _engine(side, batch_slots=2, prefill_chunk_len=8)
+    reqs_c = _staggered_reqs(chunk, prompts)
+    assert [r.output for r in reqs_c] == [r.output for r in reqs_m]
+    assert chunk.prefill_chunks > len(prompts)
+    assert chunk.prefill_pad_tokens > 0
+    assert chunk.prefill_tokens == sum(MAMBA_PROMPT_LENS)
+
+
+def _staggered_reqs(engine, prompts):
+    reqs = [torch_engine.Request(rid=i, prompt=p, max_new_tokens=N_NEW)
+            for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    assert engine.admit_request(pending.pop(0), drain=True)
+    engine.step()
+    assert engine.admit_request(pending.pop(0), drain=True)
+    engine.step()
+    engine.step()
+    engine.run_to_completion(pending)
+    assert all(r.done for r in reqs)
+    return reqs
+
+
+def test_mamba2_warmup_builds_everything_the_serve_uses(mamba_setup):
+    """Warmup builds the chunk buckets, the fused quanta and the
+    monolithic prefill of each listed length; a level sweep afterwards
+    builds nothing (the level table has no "ssd" entry, so a switch
+    changes no kernel on this path)."""
+    sides, prompts = mamba_setup
+    engine = _engine(sides["torch"], batch_slots=2, chunked_prefill=False)
+    engine.warmup(prompt_lens=tuple(len(p) for p in prompts))
+    vc = engine.version_cache
+    traces0 = vc.traces
+    reqs = [torch_engine.Request(rid=i, prompt=p, max_new_tokens=N_NEW)
+            for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    for i in range(3 * cm.NUM_LEVELS):
+        while pending and engine.admit_request(pending[0]):
+            pending.pop(0)
+        engine.set_interference_level(cm.grid_point(i % cm.NUM_LEVELS))
+        engine.step_quantum(4)
+    engine.run_to_completion(pending)
+    assert all(r.done for r in reqs)
+    assert vc.traces == traces0, "no new builds after warmup"
+    assert all("ssd" not in t for t in H100_LEVEL_TILES)
