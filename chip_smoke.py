@@ -11,8 +11,10 @@ Phases, each fatal on failure:
   2. every kernel against its plain PyTorch version, in bf16 at the
      serving paths' shapes (``block_matmul`` and ``flash_attention``
      under every distinct tile of the H100 level table; ``ssd_scan`` at
-     the serve's chunks, a three-chunk monolithic prompt and B = 4), plus
-     ragged shapes;
+     the serve's chunks, a three-chunk monolithic prompt and B = 4;
+     ``flash_attention_paged`` at page sizes 8, 16 and 32 over shuffled
+     page tables, also against the dense kernel on the gathered cache),
+     plus ragged shapes;
   3. serve gemma-2b: full width (18 layers, seeded random weights made on
      the card) through ``ServingEngine(batch_slots=4, max_len=512)`` after
      ``warmup()``: six requests admitted with ``admit_request`` +
@@ -30,7 +32,17 @@ Phases, each fatal on failure:
      one 16-token prefill chunk and one 8-step decode quantum; the
      whole-model check runs a 600-token monolithic prefill (three scan
      chunks of 256) through the kernel and through the plain versions;
-  7. times at the serve's shapes: kernel, plain version, one PyTorch call
+  7. serve gemma-2b again from a paged KV cache (``page_size=16``,
+     128 usable pages): the same six prompts plus two requests that share
+     a resident request's prompt pages (one full-page borrower, one
+     partial-tail borrower whose first decode copies the shared page);
+     exact launch accounting (``flash_attention_paged`` once per layer
+     and decode step, ``flash_attention`` once per layer and prefill
+     chunk), an empty pool after the serve, a profile of one paged decode
+     quantum, and a paged whole-model check (decode steps on a shuffled
+     page table through the kernels against the plain versions and
+     against the dense cache);
+  8. times at the serve's shapes: kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger).
 
@@ -69,6 +81,13 @@ STATE_RTOL = 1e-3
 LOGIT_RTOL = 5e-2
 
 PROMPT_LENS = (5, 37, 64, 100, 180, 250)
+PAGE_SIZE = 16
+# the paged serve's order: the 37-token prompt first, then two requests
+# that share its prompt pages (admitted once it is resident): one takes
+# its two full pages and adds 20 tokens, one is its first 24 tokens (a
+# full page plus a partial tail that copy-on-write privatizes at the first
+# decode); then the other five prompts
+PAGED_BASE = 1
 MONO_LEN = 600            # a monolithic mamba2 prompt: 3 scan chunks
 MAX_NEW = 32
 QUANTUM = 8
@@ -207,6 +226,97 @@ def check_kernels(dev, gen, report) -> dict:
     return worst
 
 
+def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3):
+    """bf16 q (B,1,H,D), K/V pools of B * MAX_LEN / ps pages plus the trash
+    page and a spare page, and a shuffled int32 page table.  Each row maps
+    the pages that hold its ``kvl`` keys to physical pages drawn from a
+    random permutation; its other entries point at the trash page or at
+    the spare page.  The trash page, the spare page and every position
+    past a row's valid length hold garbage of magnitude ~``garbage``."""
+    import torch
+    n_slot = MAX_LEN // ps
+    n_pages = b * n_slot + 2
+    shape = (n_pages, ps, kh, d)
+    k_pool = (torch.randn(shape, generator=gen, device=dev)
+              * garbage).bfloat16()
+    v_pool = (torch.randn(shape, generator=gen, device=dev)
+              * garbage).bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    spare = int(perm[-1])
+    table = torch.zeros(b, n_slot, dtype=torch.int32, device=dev)
+    for i in range(b):
+        mapped = -(-int(kvl[i]) // ps)
+        table[i, :mapped] = perm[i * n_slot:i * n_slot + mapped].int()
+        pick = torch.randint(0, 2, (n_slot - mapped,), generator=gen,
+                             device=dev)
+        table[i, mapped:] = (pick * spare).int()
+        for j in range(mapped):
+            rows = min(ps, int(kvl[i]) - j * ps)
+            ph = int(table[i, j])
+            k_pool[ph, :rows] = torch.randn(rows, kh, d, generator=gen,
+                                            device=dev).bfloat16()
+            v_pool[ph, :rows] = torch.randn(rows, kh, d, generator=gen,
+                                            device=dev).bfloat16()
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    return q, k_pool, v_pool, table
+
+
+def check_paged(dev, gen, report) -> float:
+    """``flash_attention_paged`` against its plain version (gather, then
+    dense attention) at gemma-2b's widths (H 8, K 1, D 256) and at a GQA
+    shape (K 2): page sizes 8, 16 and 32, B = 1 and 4, kv_valid of 1,
+    ragged and a full MAX_LEN slot, shuffled tables with garbage in the
+    trash page and the unmapped entries, a window and a softcap case;
+    and against the dense kernel on the gathered cache.  Returns the
+    worst |err| against the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_paged as fap
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    tol = f"tolerance {ATOL:.4g} + {RTOL:.4g}*|plain|"
+    kvls = {"kv_valid 1": [1, 1, 1, 1], "ragged": [37, 100, 260, 301],
+            "full slot": [MAX_LEN] * 4}
+    cases = [(kh, ps, b, name, None, None) for kh in (1, 2)
+             for ps in (8, 16, 32) for b in (1, 4) for name in kvls]
+    cases += [(1, 16, 4, "ragged", 64, None), (2, 8, 4, "ragged", None, 50.0),
+              (1, 32, 4, "full slot", 100, 30.0)]
+    worst = worst_dense = 0.0
+    for kh, ps, b, name, window, softcap in cases:
+        kvl = torch.tensor(kvls[name][:b], dtype=torch.int32, device=dev)
+        q, kp, vp, table = paged_inputs(gen, dev, b, 8, kh, 256, ps, kvl)
+        off = kvl - 1
+        got = fap.flash_attention_paged(q, kp, vp, table, offset=off,
+                                        kv_valid_len=kvl, window=window,
+                                        softcap=softcap)
+        torch.cuda.synchronize()
+        want = paged_attention_ref(q, kp, vp, table, offset=off,
+                                   kv_valid_len=kvl, window=window,
+                                   softcap=softcap)
+        ea, er, ok = errors(got, want)
+        label = (f"flash_attention_paged K={kh} page {ps} B={b} {name} "
+                 f"window={window} softcap={softcap}")
+        require(ok and bool(torch.isfinite(got).all()),
+                f"{label}: max abs err {ea:.4g}, max rel err {er:.4g} "
+                f"beyond {tol}")
+        dense = fa.flash_attention(
+            q, fap.gather_pages(kp, table).contiguous(),
+            fap.gather_pages(vp, table).contiguous(), offset=off,
+            kv_valid_len=kvl, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        da, dr, dok = errors(got, dense)
+        require(dok, f"{label}: against the dense kernel on the gathered "
+                f"cache max abs err {da:.4g}, max rel err {dr:.4g} beyond "
+                f"{tol}")
+        worst, worst_dense = max(worst, ea), max(worst_dense, da)
+        report(f"{label}: max abs err {ea:.4g}, max rel err {er:.4g}; "
+               f"against the dense kernel {da:.4g} ({tol})")
+    report(f"flash_attention_paged checks: {len(cases)} passed; max abs err "
+           f"{worst:.4g} against the plain version, {worst_dense:.4g} "
+           f"against the dense kernel on the gathered cache")
+    return worst
+
+
 def ssd_inputs(gen, dev, bsz, l, h, p, n, with_init):
     """bf16 x, B, C and an fp32 state of unit scale; dt = softplus of a
     normal (as the mixer makes it), a in (-2.1, -0.1)."""
@@ -263,22 +373,28 @@ def check_ssd(dev, gen, report) -> float:
     return worst
 
 
-def serve(cfg, params, prompts, dev, report, counters, expected) -> dict:
+def serve(cfg, params, prompts, dev, report, counters, expected, *,
+          engine_kw=None, after=None) -> dict:
     """Serve ``prompts`` x MAX_NEW tokens after ``warmup()``.  ``counters``
     maps each kernel of the path to its launch counter, zeroed just before
     the serve and read just after; ``expected(decode_steps, chunks)``
     gives each kernel's launch count for the decode steps and prefill
-    chunk sizes run, and a line that says why."""
+    chunk sizes run, and a line that says why.  ``engine_kw`` goes to the
+    engine (the paged cache's options); ``after`` maps a request's index
+    to the index of one that must be resident, its prompt prefilled,
+    before it is admitted (admission stays FIFO: a held request holds the
+    ones behind it)."""
     import torch
     from repro_torch.core import cost_model as cm
     from repro_torch.serving.engine import Request, ServingEngine
 
     engine = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
-                           max_len=MAX_LEN, device=dev)
+                           max_len=MAX_LEN, device=dev, **(engine_kw or {}))
+    what = f"{cfg.name}{' paged' if engine.paged else ''}"
     t0 = time.perf_counter()
     stats = engine.warmup()
     torch.cuda.synchronize()
-    report(f"{cfg.name} warmup: {time.perf_counter() - t0:.2f} s, {stats}")
+    report(f"{what} warmup: {time.perf_counter() - t0:.2f} s, {stats}")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(prompts)]
     levels = [cm.grid_point(i) for i in (0, 5, 9)]
@@ -293,8 +409,19 @@ def serve(cfg, params, prompts, dev, report, counters, expected) -> dict:
     quantum_ms, quantum_tokens = [], 0
     t_start = time.perf_counter()
     turn = 0
+    after = after or {}
+
+    def may_admit(req) -> bool:
+        base = after.get(req.rid)
+        if base is None:
+            return True
+        require(not reqs[base].done, f"request {req.rid}: request {base}, "
+                "whose pages it should share, finished first")
+        return bool(reqs[base].output)
+
     while pending or engine.active_slots:
-        while pending and engine.admit_request(pending[0]):
+        while pending and may_admit(pending[0]) and \
+                engine.admit_request(pending[0]):
             pending.popleft()
         while engine.prefill_pending:
             pq = engine.prefill_step()
@@ -342,10 +469,11 @@ def serve(cfg, params, prompts, dev, report, counters, expected) -> dict:
         "expected_launches": want, "host_syncs": syncs,
         "level_switches": engine.level_switches - switches0,
         "max_memory_allocated": peak,
+        "streams": [list(r.output) for r in reqs],
         "launches": {k: {str(t): n for t, n in v.items()}
                      for k, v in launches.items()},
     }
-    report(f"serve {cfg.name}: {len(reqs)} requests x {MAX_NEW + 1} tokens, "
+    report(f"serve {what}: {len(reqs)} requests x {MAX_NEW + 1} tokens, "
            f"{tokens} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} "
            f"tokens/s; {quanta} quanta, median {out['quantum_ms_median']:.2f}"
            f" ms/quantum ({out['decode_tokens_per_s']:.1f} decode tokens/s);"
@@ -369,6 +497,26 @@ def dense_launches(cfg):
                 {k: f"{v} per forward pass x {passes} passes = "
                  f"{decode_steps} decode steps + {len(chunks)} prefill "
                  "chunks" for k, v in per.items()})
+    return expected
+
+
+def paged_launches(cfg):
+    """A paged engine prefills into a dense row (the dense attention
+    kernel, once per layer and chunk) and decodes through the page table
+    (the paged kernel, once per layer and step); every forward pass runs
+    the three MLP GEMMs of each layer."""
+    def expected(decode_steps, chunks):
+        n, passes = cfg.num_layers, decode_steps + len(chunks)
+        return ({"block_matmul": 3 * n * passes,
+                 "flash_attention": n * len(chunks),
+                 "flash_attention_paged": n * decode_steps},
+                {"block_matmul": f"{3 * n} per forward pass x {passes} "
+                 f"passes = {decode_steps} decode steps + {len(chunks)} "
+                 "prefill chunks",
+                 "flash_attention": f"{n} per prefill chunk x "
+                 f"{len(chunks)} chunks (prefill fills a dense row)",
+                 "flash_attention_paged": f"{n} per decode step x "
+                 f"{decode_steps} steps"})
     return expected
 
 
@@ -531,6 +679,84 @@ def whole_model_check(cfg, params, prompt, dev, report) -> dict:
                f"{LOGIT_RTOL} x max |logit|), same argmax: {same_top}")
         require(diff <= LOGIT_RTOL * scale,
                 f"whole-model {name} logits drift {diff:.4g}")
+    return results
+
+
+def whole_model_check_paged(cfg, params, prompt, dev, report) -> dict:
+    """Decode steps on a paged cache (pages of PAGE_SIZE shuffled over the
+    pool, garbage in the trash page and the unmapped ones) through the
+    kernels against the plain versions, and against the dense cache's
+    decode through the kernels; every run starts from the same prompt
+    cache (the plain model's 16-token prefill) and is fed the same
+    tokens (the plain paged run's argmax).  Bound: LOGIT_RTOL x max
+    |logit|, as ``whole_model_check``."""
+    import torch
+    from repro_torch.kernels import flash_attention_paged as fap
+    from repro_torch.models.model import Model
+
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    toks = torch.as_tensor(prompt[:16], dtype=torch.int64,
+                           device=dev)[None]
+    row = plain.init_cache(1, MAX_LEN, dev)
+    logits, row = plain.prefill_chunk(params, {"tokens": toks}, row, 0, 16)
+    n_slot, n_pages = MAX_LEN // PAGE_SIZE, 2 * (MAX_LEN // PAGE_SIZE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = (torch.randperm(n_pages, generator=gen, device=dev)[:n_slot]
+             + 1).int()[None]
+
+    def paged_cache():
+        cache = kern.init_paged_cache(1, MAX_LEN, n_pages, PAGE_SIZE, dev)
+        for leaf in ("k", "v"):
+            pool = cache["blocks"]["dense"][leaf]
+            pool.copy_(torch.randn(pool.shape, generator=gen, device=dev)
+                       * 100.0)
+            rows = row["blocks"]["dense"][leaf][:, 0]
+            pool[:, table[0].long()] = rows.reshape(
+                rows.shape[0], n_slot, PAGE_SIZE, *rows.shape[2:])
+        cache["page_table"] = table.clone()
+        return cache
+
+    runs = {"kernels, paged": (kern, paged_cache()),
+            "plain, paged": (plain, paged_cache()),
+            "kernels, dense": (kern, {"blocks": {"dense": {
+                k: v.clone() for k, v in row["blocks"]["dense"].items()}}})}
+    nxt = logits.argmax(dim=-1)
+    steps, results = 4, {}
+    worst = {"plain": 0.0, "dense": 0.0}
+    for step in range(steps):
+        pos = torch.tensor([16 + step], device=dev)
+        before = fap.launch_count()
+        lg = {}
+        for name, (m, cache) in runs.items():
+            lg[name] = m.decode_step(params, {"tokens": nxt}, cache, pos)[0]
+        torch.cuda.synchronize()
+        require(fap.launch_count() - before == cfg.num_layers,
+                f"paged decode step {step}: "
+                f"{fap.launch_count() - before} paged-kernel launches")
+        scale = lg["plain, paged"].abs().max().item()
+        for other, key in (("plain, paged", "plain"),
+                           ("kernels, dense", "dense")):
+            diff = (lg["kernels, paged"] - lg[other]).abs().max().item()
+            require(diff <= LOGIT_RTOL * scale and bool(torch.isfinite(
+                lg["kernels, paged"]).all()), f"paged decode step {step}: "
+                f"kernels vs {other} logits drift {diff:.4g}")
+            worst[key] = max(worst[key], diff / scale)
+        results[f"step {step}"] = {
+            "max_abs_diff_plain": (lg["kernels, paged"]
+                                   - lg["plain, paged"]).abs().max().item(),
+            "max_abs_diff_dense": (lg["kernels, paged"]
+                                   - lg["kernels, dense"]).abs().max().item(),
+            "max_abs_logit": scale,
+            "same_argmax": bool((lg["kernels, paged"].argmax(-1) ==
+                                 lg["plain, paged"].argmax(-1)).all())}
+        nxt = lg["plain, paged"].argmax(dim=-1)
+    report(f"whole model {cfg.name} paged (page {PAGE_SIZE}, shuffled "
+           f"table): {steps} decode steps from position 16, max |kernels "
+           f"paged - plain paged| / max |logit| {worst['plain']:.4g}, max "
+           f"|kernels paged - kernels dense| / max |logit| "
+           f"{worst['dense']:.4g} (tolerance {LOGIT_RTOL}); same argmax "
+           "as plain: " + ", ".join(str(r["same_argmax"])
+                                    for r in results.values()))
     return results
 
 
@@ -803,6 +1029,160 @@ def timings(dev, gen, report) -> list[dict]:
     return rows
 
 
+def paged_bound(offs, ps, h, kh, d) -> tuple[float, str, int, int]:
+    """The least time for one decode call of the paged kernel (one query
+    per row, at position ``o``; kv_valid is ``o + 1``): each row's visible
+    keys, ``o + 1`` of K and V (bf16), q and out (bf16), the
+    ``ceil((o + 1) / ps)`` table entries that address those keys and the
+    row's offset and kv_valid (int32), each read or written once at
+    3.35 TB/s, against 4*D FLOPs per visible key and query head at
+    989 TFLOP/s."""
+    b = len(offs)
+    keys = sum(o + 1 for o in offs)
+    entries = sum(-(-(o + 1) // ps) for o in offs)
+    nbytes = keys * kh * d * 2 * 2 + 2 * b * h * d * 2 + entries * 4 + \
+        2 * b * 4
+    flops = 4 * h * d * keys
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def paged_timings(dev, gen, report) -> list[dict]:
+    """``flash_attention_paged`` at the paged serve's decode shape (4 rows,
+    H 8, K 1, D 256, pages of PAGE_SIZE, the dense decode timing's
+    positions): kernel, plain version (gather + dense attention), the
+    bound, and a yardstick: SDPA over the K/V already gathered into dense
+    rows (the gather is not counted; no single PyTorch call reads through
+    a page table).  Then the same at rows of one 64-key tile each, which
+    separates the kernel's cost per tile from its fixed cost."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_paged as fap
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    rows = []
+    b, h, kh, d, t = 4, 8, 1, 256, MAX_LEN
+    for label, offs in (("decode", [68, 140, 260, 300]),
+                        ("decode, one tile per row", [63] * 4)):
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kvl = off + 1
+        q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, PAGE_SIZE,
+                                        kvl)
+        kd = fap.gather_pages(kp, table)
+        vd = fap.gather_pages(vp, table)
+        mask = (torch.arange(t, device=dev)[None, None, None, :]
+                <= off[:, None, None, None])             # (B,1,1,T)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) for a in (kd, vd))
+        bound_ms, bound_by, nbytes, flops = paged_bound(
+            offs, PAGE_SIZE, h, kh, d)
+        row = {"name": "flash_attention_paged", "shape": label, "b": b,
+               "h": h, "kh": kh, "d": d, "page_size": PAGE_SIZE,
+               "offsets": offs,
+               "ms": cold_ms(lambda: fap.flash_attention_paged(
+                   q, kp, vp, table, offset=off, kv_valid_len=kvl), 20,
+                   flush),
+               "plain_ms": cold_ms(lambda: paged_attention_ref(
+                   q, kp, vp, table, offset=off, kv_valid_len=kvl), 20,
+                   flush),
+               "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask), 20, flush),
+               "library": "scaled_dot_product_attention over K/V already "
+                          "gathered into dense rows (gather not counted)",
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops}
+        rows.append(row)
+        report(f"time flash_attention_paged {label} B={b} H={h} K={kh} "
+               f"D={d} page {PAGE_SIZE} offsets={offs}: kernel "
+               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+               f"over the gathered rows (gather not counted) "
+               f"{row['library_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+               f"({bound_by}: {nbytes} bytes, {flops} flops)")
+    return rows
+
+
+def check_paged_serve(engine, out, report) -> None:
+    """The paged serve's pool: prefix pages were shared and a shared page
+    was copied before a write, nothing stalled, and the pool is empty
+    after the serve.  Reports the pool's peak bytes against the dense
+    cache's slots x MAX_LEN rows and the cache utilization."""
+    stats = engine.page_stats
+    require(stats["shared_hits"] >= 1 and stats["cow_copies"] >= 1,
+            f"paged serve shared no prefix page or copied none: {stats}")
+    require(stats["stalls"] == 0, f"paged serve stalled: {stats}")
+    require(stats["used_pages"] == 0 and stats["committed"] == 0,
+            f"paged serve left pages in use: {stats}")
+    leaves = engine.cache["blocks"]["dense"]
+    page_bytes = sum(a[:, 0].numel() * a.element_size()
+                     for a in leaves.values())      # one page, all layers
+    out["page_stats"] = stats
+    out["cache_utilization"] = engine.cache_utilization
+    out["pool_peak_bytes"] = stats["peak_used"] * page_bytes
+    out["dense_cache_bytes"] = BATCH_SLOTS * MAX_LEN // PAGE_SIZE * \
+        page_bytes
+    report(f"paged serve pool: {stats}; cache utilization "
+           f"{out['cache_utilization']:.4f}; peak {stats['peak_used']} pages "
+           f"= {out['pool_peak_bytes'] / 2**20:.2f} MiB against "
+           f"{out['dense_cache_bytes'] / 2**20:.2f} MiB for dense rows of "
+           f"{BATCH_SLOTS} x {MAX_LEN}")
+
+
+def serve_paged(cfg, params, prompts, dense_streams, dev, report,
+                seed) -> tuple[dict, dict]:
+    """Serve the dense serve's prompts again on a paged engine
+    (``page_size=PAGE_SIZE``, the default 128 usable pages), with two
+    requests that share the PAGED_BASE prompt's pages, then profile one
+    paged decode quantum.  Exact launch accounting for all three kernels
+    of the path; the pool's counters are checked after the serve; the
+    streams of the dense serve's prompts are compared, not gated (the
+    paged and dense kernels sum in different orders)."""
+    import numpy as np
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_paged as fap
+
+    base = prompts[PAGED_BASE]
+    tail = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, 20)
+    sharers = [np.concatenate([base[:2 * PAGE_SIZE],
+                               tail.astype(np.int32)]),
+               base[:PAGE_SIZE + PAGE_SIZE // 2].copy()]
+    rest = [i for i in range(len(prompts)) if i != PAGED_BASE]
+    order = [PAGED_BASE, rest[0]] + [None, None] + rest[1:]
+    paged_prompts = [prompts[i] if i is not None else sharers.pop(0)
+                     for i in order]
+    counters = {"block_matmul": bm.LAUNCHES, "flash_attention": fa.LAUNCHES,
+                "flash_attention_paged": fap.LAUNCHES}
+    groups = {"block_matmul": "block_matmul_kernel",
+              "flash_attention": "flash_attention_kernel",
+              "flash_attention_paged": "paged_flash_kernel"}
+    engine, out = serve(cfg, params, paged_prompts, dev, report, counters,
+                        paged_launches(cfg),
+                        engine_kw={"page_size": PAGE_SIZE},
+                        after={2: 0, 3: 0})
+    check_paged_serve(engine, out, report)
+    same = [out["streams"][j] == dense_streams[i]
+            for j, i in enumerate(order) if i is not None]
+    out["streams_equal_to_dense"] = sum(same)
+    report(f"paged serve: {sum(same)} of {len(same)} token streams equal "
+           "the dense serve's streams of the same prompts (not gated: the "
+           "paged and dense attention kernels sum in different orders)")
+    prof = profile_quantum(engine, prompts, report, groups)
+    busy = prof["device_busy_ms"]
+    share = (prof["device_ms_by_group"].get("flash_attention_paged", 0.0)
+             / busy if busy else None)
+    prof["flash_attention_paged_share"] = share
+    report("profile paged quantum: flash_attention_paged share of device "
+           "time " + ("not measured" if share is None else f"{share:.4f}"))
+    del engine
+    return out, prof
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -845,6 +1225,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     worst = check_kernels(dev, gen, report)
     worst["ssd_scan"] = check_ssd(dev, gen, report)
+    worst["flash_attention_paged"] = check_paged(dev, gen, report)
 
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import flash_attention as fa
@@ -887,13 +1268,20 @@ def main() -> int:
         if cfg.ssm is None:
             model_check[name] = whole_model_check(cfg, params, prompts[1],
                                                   dev, report)
+            paged = f"{name} paged"
+            served[paged], prof[paged] = serve_paged(
+                cfg, params, prompts, served[name]["streams"], dev, report,
+                args.seed)
+            model_check[paged] = whole_model_check_paged(
+                cfg, params, prompts[1], dev, report)
         else:
             model_check[name] = whole_model_check_ssm(
                 cfg, params, rng.integers(0, cfg.vocab_size, MONO_LEN),
                 dev, report)
         del params
         torch.cuda.empty_cache()
-    times = timings(dev, gen, report) + ssd_timings(dev, gen, report)
+    times = (timings(dev, gen, report) + ssd_timings(dev, gen, report)
+             + paged_timings(dev, gen, report))
 
     kernels = []
     for name, src, replaces, model in (
@@ -902,7 +1290,10 @@ def main() -> int:
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:31", "gemma-2b"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:23", "mamba2-780m")):
+             "src/repro/kernels/ssd_scan.py:23", "mamba2-780m"),
+            ("flash_attention_paged",
+             "src/repro_torch/csrc/flash_attention_paged.cu",
+             "src/repro/kernels/flash_attention.py:141", "gemma-2b paged")):
         row = next(r for r in times if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -21,7 +21,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
-SOURCES = ("block_matmul", "flash_attention", "ssd_scan")
+SOURCES = ("block_matmul", "flash_attention", "flash_attention_paged",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -124,6 +124,22 @@ def get_attention() -> Callable:
     return attn
 
 
+def get_paged_attention() -> Callable:
+    """Decode attention read through the page table, through
+    ``flash_attention_paged``.  No tile table is read: the page size
+    fixes the KV block, so a level switch changes no paged-attention
+    kernel."""
+    from repro_torch.kernels import ops
+
+    def attn(q, k_pool, v_pool, *, page_table, q_positions, kv_valid_len,
+             window, softcap):
+        return ops.flash_attention_paged(
+            q, k_pool, v_pool, page_table=page_table,
+            q_positions=q_positions, kv_valid_len=kv_valid_len,
+            window=window, softcap=softcap)
+    return attn
+
+
 def get_ssd() -> Callable:
     """The Mamba-2 chunked scan through ``ssd_scan`` at the model's chunk.
     No tile table is read: the level tiles name no ``"ssd"`` entry, so a

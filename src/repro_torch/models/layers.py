@@ -10,7 +10,8 @@ Conventions, as in the reference:
 
 The hot-spot ops go through the kernel hooks (``kernels.dispatch``)
 unless a caller passes ``use_kernel_hook=False``, which runs the kernels'
-plain versions on any device.  Caches are updated in place.
+plain versions on any device.  Caches (dense rows or page pools) are
+updated in place.
 """
 from __future__ import annotations
 
@@ -21,8 +22,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.ref import attention_ref, matmul_ref
+from repro_torch.kernels.ref import attention_ref, matmul_ref, \
+    paged_attention_ref
 from repro_torch.models.params import ParamSpec
+
+# Physical page 0 of every paged cache pool is the pinned trash page: free
+# slots, unmapped table entries and frozen rows' writes point at it.
+TRASH_PAGE = 0
 
 
 # --------------------------------------------------------------------------
@@ -106,15 +112,22 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
               positions: torch.Tensor, cache: dict | None = None,
               cache_index: int | torch.Tensor | None = None,
               live: torch.Tensor | None = None,
+              page_table: torch.Tensor | None = None,
               use_kernel_hook: bool = True) -> torch.Tensor:
-    """Self-attention with an optional dense KV cache, updated in place.
+    """Self-attention with an optional KV cache, updated in place.
 
     cache: {"k": (B, Tmax, K, D), "v": ...}; cache_index: absolute
     position of the first new token — a Python int when all rows are
     aligned (prefill), or a (B,) tensor of per-row positions (continuous
     batching decode).  ``live`` (B,) bool masks the per-row write: a row
     that is not live keeps its cache entry bit-exact (frozen rows of a
-    fused decode quantum)."""
+    fused decode quantum).
+
+    With ``page_table`` (B, pages_per_slot) the cache leaves are physical
+    page pools ``(n_pages + 1, page_size, K, D)``: the new token's KV
+    lands in its slot's page at ``cache_index`` and attention reads
+    through the table.  Decode only (S == 1): prefill fills dense rows,
+    which the serving engine scatters into pages."""
     b, s, _ = x.shape
     q = torch.einsum("bsm,mhd->bshd", x, params["wq"].to(x.dtype))
     k = torch.einsum("bsm,mkd->bskd", x, params["wk"].to(x.dtype))
@@ -127,6 +140,31 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         y = attend(q, k.contiguous(), v.contiguous(), q_positions=positions,
                    kv_valid_len=s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
+    elif page_table is not None:
+        if s != 1 or isinstance(cache_index, int):
+            raise ValueError("a paged cache takes one-token decode steps "
+                             "at (B,) positions (prefill fills dense rows)")
+        ck, cv = cache["k"], cache["v"]
+        ps = ck.shape[1]
+        bidx = torch.arange(b, device=x.device)
+        phys = page_table[bidx, cache_index // ps].long()
+        if live is not None:
+            # a row that is not live writes to the trash page: its own
+            # pages stay bit-exact and no shared page is touched
+            phys = torch.where(live, phys, TRASH_PAGE)
+        off = cache_index % ps
+        ck[phys, off] = k[:, 0].to(ck.dtype)
+        cv[phys, off] = v[:, 0].to(cv.dtype)
+        kvl = cache_index + 1
+        if use_kernel_hook:
+            y = dispatch.get_paged_attention()(
+                q, ck, cv, page_table=page_table, q_positions=positions,
+                kv_valid_len=kvl, window=cfg.sliding_window, softcap=None)
+        else:
+            y = paged_attention_ref(q, ck, cv, page_table,
+                                    offset=positions[..., 0].reshape(-1),
+                                    kv_valid_len=kvl,
+                                    window=cfg.sliding_window)
     else:
         ck, cv = cache["k"], cache["v"]
         if isinstance(cache_index, int):

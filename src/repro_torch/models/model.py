@@ -10,6 +10,11 @@ quantum masks the cache write of every row past its step budget (KV rows,
 conv and SSD state) instead of reverting it afterwards as the reference's
 ``select_cache_rows`` does.
 
+A paged cache (``init_paged_cache``) keeps the linear KV leaves as
+physical page pools addressed through a per-slot ``"page_table"`` that
+rides inside the cache dict; decode steps and quanta read and write
+through it.
+
 Inputs dict: ``{"tokens": (B,S) int}``; decode inputs ``{"tokens": (B,)}``
 with a position ``t`` — a Python int (all rows aligned) or a (B,) tensor
 of per-row positions (continuous batching).
@@ -24,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params, \
-    tree_map_with_path
+    tree_leaves_with_path, tree_map_with_path
 
 PyTree = Any
 
@@ -106,7 +111,7 @@ class TorchModel:
         return init_params(self.param_specs(), generator, device)
 
     # -- caches ------------------------------------------------------------
-    # veltair: ignore[paged-leaf-coverage] the port's KV cache is dense only (paging is a later slice of the port); the reference's Model.cache_specs anchor is another class
+    # veltair: ignore[paged-leaf-coverage] the rule's anchor is the reference's Model.cache_specs, which this class cannot reach under its own name; paged_leaf_paths below derives the pageable leaves from this method, and tests/test_torch_paging.py holds them equal to the reference's
     def cache_specs(self, batch: int, t_max: int) -> dict:
         cfg = self.cfg
         leaves = (_ssm_state_specs(cfg, batch) if cfg.family == "ssm"
@@ -118,6 +123,62 @@ class TorchModel:
         return tree_map_with_path(
             lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=device),
             self.cache_specs(batch, t_max))
+
+    # -- paged caches ------------------------------------------------------
+    def paged_leaf_paths(self) -> frozenset:
+        """Paths of the cache leaves that page: those whose spec carries a
+        ``"seq"`` axis (attention k/v).  Recurrent state (the ssm family's
+        conv and SSD leaves) is O(1) per slot and stays dense."""
+        return frozenset(path for path, spec in tree_leaves_with_path(
+            self.cache_specs(1, 8)) if "seq" in spec.axes)
+
+    def all_cache_leaves_paged(self) -> bool:
+        """True when every cache leaf pages (pure-attention families).
+        The paged engine takes only such families: skipping the prefill
+        of a shared prefix is sound only when no dense recurrent state is
+        skipped, and the engine's row scatter and gather handle pools
+        only."""
+        paged = self.paged_leaf_paths()
+        return bool(paged) and all(
+            path in paged for path, _ in tree_leaves_with_path(
+                self.cache_specs(1, 8)))
+
+    # veltair: ignore[paged-leaf-coverage] connected to this class's cache_specs, which it calls; the rule's anchor is the reference's Model.cache_specs (see cache_specs above)
+    def paged_cache_specs(self, batch: int, t_max: int, n_pages: int,
+                          page_size: int) -> dict:
+        """Cache specs with every ``"seq"``-axis leaf reshaped from dense
+        rows ``(batch, t_max, ...)`` to a physical page pool
+        ``(n_pages + 1, page_size, ...)`` (index 0 = pinned trash page).
+        One logical page uses the same physical index in every layer's
+        pool, so one per-slot page table addresses all layers."""
+        if t_max % page_size:
+            raise ValueError(f"t_max={t_max} must be a multiple of "
+                             f"page_size={page_size}")
+
+        def to_pool(_, spec):
+            if "seq" not in spec.axes:
+                return spec
+            si = spec.axes.index("seq")
+            shape, axes = list(spec.shape), list(spec.axes)
+            shape[si - 1], shape[si] = n_pages + 1, page_size
+            axes[si - 1], axes[si] = "pages", None
+            return ParamSpec(tuple(shape), spec.dtype, tuple(axes),
+                             init="zeros")
+        return tree_map_with_path(to_pool, self.cache_specs(batch, t_max))
+
+    def init_paged_cache(self, batch: int, t_max: int, n_pages: int,
+                         page_size: int, device) -> PyTree:
+        """Paged variant of :meth:`init_cache`, plus a per-slot
+        ``"page_table"`` (batch, t_max // page_size) int32 of physical
+        page indices; all zeros parks every entry on the trash page.  The
+        table rides inside the cache dict, so no entry point changes its
+        signature."""
+        cache = tree_map_with_path(
+            lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            self.paged_cache_specs(batch, t_max, n_pages, page_size))
+        cache["page_table"] = torch.zeros((batch, t_max // page_size),
+                                          dtype=torch.int32, device=device)
+        return cache
 
     # -- stacks ------------------------------------------------------------
     def _default_positions(self, b: int, s: int, t0, device) -> torch.Tensor:
@@ -133,10 +194,12 @@ class TorchModel:
         """``valid_len`` (a host int, chunked prefill) reaches the ssm
         mixer, for which the tokens past it must be exact no-ops; a
         padded KV row needs nothing (it stays causally invisible until
-        the decode step at its position overwrites it)."""
+        the decode step at its position overwrites it).  A cache that
+        holds a ``"page_table"`` routes every layer's KV through it."""
         cfg = self.cfg
         blocks = params["blocks"][cfg.family]
         caches = cache["blocks"][cfg.family] if cache is not None else None
+        page_table = cache.get("page_table") if cache is not None else None
         for i in range(cfg.num_layers):
             p = _layer(blocks, i)
             c = _layer(caches, i) if caches is not None else None
@@ -148,6 +211,7 @@ class TorchModel:
                 continue
             x = x + L.attention(p["attn"], xa, cfg=cfg, positions=positions,
                                 cache=c, cache_index=t, live=live,
+                                page_table=page_table,
                                 use_kernel_hook=self.use_kernels)
             xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
             x = x + L.apply_mlp(p["mlp"], xm, cfg.activation,
@@ -191,7 +255,10 @@ class TorchModel:
     def decode_step(self, params, inputs, cache, t, live=None):
         """One-token decode at absolute position ``t`` (an int or a (B,)
         tensor).  ``live`` (B,) bool freezes the cache of rows that are
-        not live.  -> (logits (B,V) fp32, cache)."""
+        not live.  A paged cache (one holding a ``"page_table"``, see
+        :meth:`init_paged_cache`) reads and writes KV through the table,
+        which passes through unchanged (the host owns it).
+        -> (logits (B,V) fp32, cache)."""
         toks = inputs["tokens"]
         b = toks.shape[0]
         positions = self._default_positions(b, 1, t, toks.device)
@@ -203,8 +270,16 @@ class TorchModel:
     def select_cache_rows(self, live: torch.Tensor, new_cache: PyTree,
                           old_cache: PyTree) -> PyTree:
         """Per-row cache select (functional): rows where ``live`` is True
-        take ``new_cache``, the others keep ``old_cache`` bit-exact."""
+        take ``new_cache``, the others keep ``old_cache`` bit-exact.
+        Page-pool leaves and the page table have no per-row batch axis
+        and are kept as written (a row that is not live writes to the
+        trash page, see ``layers.attention``)."""
+        paged = (self.paged_leaf_paths() | {("page_table",)}
+                 if "page_table" in new_cache else frozenset())
+
         def sel(path, n, o):
+            if path in paged:
+                return n
             shape = [1] * n.ndim
             shape[cache_batch_axis(path)] = live.shape[0]
             return torch.where(live.reshape(shape), n, o).to(o.dtype)

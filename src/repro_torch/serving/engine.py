@@ -1,5 +1,5 @@
-"""Batched serving engine of the PyTorch port (dense KV cache path of
-``repro.serving.engine``).
+"""Batched serving engine of the PyTorch port (the dense and paged KV
+cache paths of ``repro.serving.engine``).
 
 Continuous batching over request slots: requests join free slots,
 chunked prefill fills their cache rows, fused decode quanta run the whole
@@ -12,6 +12,15 @@ prompt and queues power-of-two prefill chunks; ``prefill_step`` runs one
 chunk into the slot's private row cache.  A decode quantum of K steps
 runs on the device with on-device greedy sampling, and the host syncs
 once per quantum (``finish_quantum``) and once per finishing prefill.
+
+Paged KV cache (``page_size=...``): the linear KV leaves live in one
+physical page pool per layer, addressed through a per-slot page table
+that rides inside the cache dict; memory becomes a scheduler-visible
+dimension (``PagePool`` commitments gate admission, free-page headroom
+clamps decode quanta) and common prompt prefixes are shared across
+requests (refcounted pages, copy-on-write before the first decode write).
+Prefill still fills a dense batch-1 row, which is scattered into pages
+when the prompt finishes.
 
 The VELTAIR integration point: ``set_interference_level`` selects the
 code version (kernel tiles) for the current pressure and swaps in its
@@ -38,6 +47,7 @@ from repro_torch.core.counters import CounterBank
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import Model, cache_batch_axis
 from repro_torch.models.params import tree_map_with_path
+from repro_torch.serving.paging import TRASH_PAGE, PagePool
 from repro_torch.serving.version_cache import VersionCache
 
 # Fused-quantum sizes: a quantum of k decode steps runs as the smallest
@@ -78,6 +88,12 @@ H100_LEVEL_TILES = tuple(
      "attention": {"bq": bq, "bkv": bkv}}
     for (bm, bn, bk), (bq, bkv) in _H100_LEVELS)
 assert len(H100_LEVEL_TILES) == cm.NUM_LEVELS
+
+
+def _leaf(tree: dict, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def resolve_device(device) -> torch.device:
@@ -140,6 +156,8 @@ class TorchServingEngine:
                  quantum_buckets: tuple[int, ...] = QUANTUM_BUCKETS,
                  chunked_prefill: bool = True,
                  prefill_chunk_len: int = PREFILL_CHUNK_LEN,
+                 page_size: int | None = None, n_pages: int | None = None,
+                 page_reserve: str = "worst", prefix_sharing: bool = True,
                  ladder=None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -148,7 +166,50 @@ class TorchServingEngine:
                                          params)
         self.slots = batch_slots
         self.max_len = max_len
-        self.cache = self.model.init_cache(batch_slots, max_len, self.device)
+        # paged KV cache: page_size=None keeps the dense per-slot rows
+        self.paged = page_size is not None
+        self.page_size = int(page_size) if self.paged else 0
+        self.page_reserve = page_reserve
+        if self.paged:
+            if self.page_size < 1 or max_len % self.page_size:
+                raise ValueError(
+                    f"page_size={page_size} must be >= 1 and divide "
+                    f"max_len={max_len}")
+            if page_reserve not in ("worst", "prompt"):
+                raise ValueError(
+                    f"page_reserve={page_reserve!r} not in ('worst', "
+                    "'prompt')")
+            self._paged_paths = self.model.paged_leaf_paths()
+            if not self.model.all_cache_leaves_paged():
+                raise ValueError(
+                    f"{cfg.name}: not every cache leaf is pageable "
+                    "(linear KV) — recurrent-state models keep the dense "
+                    "layout")
+            self.pages_per_slot = max_len // self.page_size
+            if n_pages is None:
+                n_pages = batch_slots * self.pages_per_slot
+            self.pool: PagePool | None = PagePool(int(n_pages),
+                                                 self.page_size)
+            self.prefix_sharing = bool(prefix_sharing)
+            self.cache = self.model.init_paged_cache(
+                batch_slots, max_len, int(n_pages), self.page_size,
+                self.device)
+            # host mirror of the device page table + per-slot page maps
+            self._page_table = np.zeros((batch_slots, self.pages_per_slot),
+                                        np.int32)
+            self._table_dirty = False
+            self._slot_pages: list[dict[int, int]] = [
+                {} for _ in range(batch_slots)]     # logical -> physical
+            self._slot_shared: list[set[int]] = [
+                set() for _ in range(batch_slots)]  # borrowed (COW-guarded)
+            self._slot_commit = [0] * batch_slots   # reserved, unallocated
+        else:
+            self._paged_paths = frozenset()
+            self.pages_per_slot = 0
+            self.pool = None
+            self.prefix_sharing = False
+            self.cache = self.model.init_cache(batch_slots, max_len,
+                                               self.device)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, np.int64)
         # chunk sizes are powers of two <= prefill_chunk_len, clamped so a
@@ -165,7 +226,8 @@ class TorchServingEngine:
         self.rejected_invalid = 0      # admissions refused for length/ids
         # pristine single-slot row: never written in place; admissions
         # prefill into a fresh copy and releases write it over the slot,
-        # so a reused slot cannot leak the previous tenant's KV
+        # so a reused slot cannot leak the previous tenant's KV.  A paged
+        # engine prefills into a dense row too and scatters it into pages
         self._empty_row = self.model.init_cache(1, max_len, self.device)
         # tiles: an autotuned level ladder (the ``ladder`` argument — a
         # LadderSpec or its raw levels list — else the process-global
@@ -197,6 +259,9 @@ class TorchServingEngine:
         self.tokens_decoded = 0
         self.quantum_calls = 0
         self.version_cache = VersionCache(self.model)
+        # occupancy telemetry (peak valid tokens, peak occupied slots)
+        self.peak_cache_tokens = 0
+        self.peak_active_slots = 0
         self._use_version({})             # baseline: no overrides installed
 
     # ------------------------------------------------------------------
@@ -246,8 +311,17 @@ class TorchServingEngine:
             levels = [cm.grid_point(i) for i in range(cm.NUM_LEVELS)]
         buckets = (self.quantum_buckets if quantum_buckets is None
                    else tuple(quantum_buckets))
+        # a paged engine's pools survive the warm decodes, which write to
+        # the trash page; dense rows of resident requests are restored
         live_rows = [(i, self._slice_row(i))
-                     for i, r in enumerate(self.slot_req) if r is not None]
+                     for i, r in enumerate(self.slot_req)
+                     if r is not None and not self.paged]
+        if self.paged:
+            # aim every slot at the trash page while the warm decodes run
+            # at position 0: their writes land there, never in live pages
+            self.cache["page_table"] = torch.zeros_like(
+                self.cache["page_table"])
+            self._table_dirty = True
         toks = torch.zeros(self.slots, dtype=torch.int64, device=self.device)
         pos = torch.zeros(self.slots, dtype=torch.int64, device=self.device)
         tile_tables = [self._active_tiles if self._active_tiles is not None
@@ -272,6 +346,7 @@ class TorchServingEngine:
                     self._fresh_row())
         for i, row in live_rows:
             self._write_row(i, row)
+        self._sync_table()       # restore the real table from the mirror
         return dict(self.version_cache.stats)
 
     @property
@@ -301,6 +376,46 @@ class TorchServingEngine:
             c.select(ax, slot).copy_(r.select(ax, 0))
         tree_map_with_path(put, self.cache, row)
 
+    # A paged engine's cache leaves are all page pools (L, n_pages + 1,
+    # page_size, ...) under the same paths as the dense row's
+    # (L, 1, max_len, ...) leaves, plus the page table.
+    def _scatter_row(self, row, wtab: np.ndarray) -> None:
+        """Write a dense batch-1 row into the pools, page by page, at the
+        physical pages of ``wtab`` (pages_per_slot,); logical pages that
+        ``wtab`` sends to the trash page (borrowed or unmapped) are
+        skipped."""
+        js = np.flatnonzero(wtab != TRASH_PAGE)
+        if not len(js):
+            return
+        src = self._to_device(js)
+        dst = self._to_device(wtab[js].astype(np.int64))
+        for path in self._paged_paths:
+            r = _leaf(row, path)
+            pages = r.reshape(r.shape[0], self.pages_per_slot,
+                              self.page_size, *r.shape[3:])
+            _leaf(self.cache, path)[:, dst] = pages[:, src]
+
+    def _gather_row(self, trow: np.ndarray):
+        """A fresh dense batch-1 row holding the pages of ``trow``
+        (pages_per_slot,) at their logical offsets (the shared-prefix
+        admission path: borrowed pages land where the unshared tail can
+        prefill on top of them; entries still unmapped read the trash
+        page, garbage the remaining chunks overwrite before any query
+        attends to it)."""
+        idx = self._to_device(trow.astype(np.int64))
+        return tree_map_with_path(
+            lambda path, r: _leaf(self.cache, path)[:, idx].reshape(r.shape),
+            self._empty_row)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: physical page ``src`` into ``dst`` in every pool
+        (one logical page has the same physical index in every layer's
+        pool), in place, on the stream ahead of the quantum that writes
+        the page."""
+        for path in self._paged_paths:
+            pool = _leaf(self.cache, path)
+            pool[:, dst].copy_(pool[:, src])
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A small host array on the engine's device, copied without
         blocking the host (pinned staging)."""
@@ -309,19 +424,328 @@ class TorchServingEngine:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    # ------------------------------------------------------------------
+    # Page accounting (paged engines only)
+    # ------------------------------------------------------------------
+    def _sync_table(self) -> None:
+        """Push the host page-table mirror to the device when stale: a
+        copy of the mirror (the host edits it right after) staged through
+        pinned memory, without blocking the host."""
+        if self.paged and self._table_dirty:
+            self.cache["page_table"] = self._to_device(self._page_table.copy())
+            self._table_dirty = False
+
+    def _alloc_page(self, slot: int) -> int | None:
+        """One physical page for ``slot``, drawing down its admission
+        commitment first (those draws cannot fail); uncommitted draws
+        return None when the pool's free surplus is exhausted (counted as
+        a stall by the pool)."""
+        assert self.pool is not None
+        if self._slot_commit[slot] > 0:
+            self._slot_commit[slot] -= 1
+            return self.pool.take_page(reserved=True)
+        return self.pool.take_page(reserved=False)
+
+    def _probe_prefix(self, prompt) -> tuple[list, tuple | None]:
+        """Published pages covering a prefix of ``prompt``: the full-page
+        hits [(logical, physical), ...] plus an optional partial-tail hit,
+        a published page whose tokens start with the whole rest of the
+        prompt (positions beyond stay causally masked until copy-on-write
+        privatizes the page)."""
+        assert self.pool is not None
+        ps = self.page_size
+        toks = tuple(int(t) for t in prompt)
+        n = len(toks)
+        shared: list[tuple[int, int]] = []
+        j = 0
+        while (j + 1) * ps <= n:
+            phys = self.pool.lookup_page(toks[:j * ps],
+                                         toks[j * ps:(j + 1) * ps])
+            if phys is None:
+                break
+            shared.append((j, phys))
+            j += 1
+        partial = None
+        rem = toks[j * ps:]
+        if rem and len(rem) < ps:
+            phys = self.pool.lookup_covering_page(toks[:j * ps], rem)
+            if phys is not None:
+                partial = (j, phys)
+        return shared, partial
+
+    def _horizon_pages(self, n: int, max_new_tokens: int) -> int:
+        """Pages a request reserves: its worst case (prompt plus every new
+        token) or, with ``page_reserve="prompt"``, the prompt and one."""
+        horizon = (n + max(int(max_new_tokens), 1)
+                   if self.page_reserve == "worst" else n + 1)
+        return self.pool.pages_for_tokens(min(horizon, self.max_len))
+
+    def pages_to_admit(self, prompt,
+                       max_new_tokens: int) -> tuple[int, int | None]:
+        """(pages_needed, pages_free) for an admission controller: the
+        worst-case pages this request would commit (net of shareable
+        prefix pages) and the pool's uncommitted free surplus.  A dense
+        engine reports (0, None): memory is no conflict dimension there."""
+        if not self.paged:
+            return 0, None
+        assert self.pool is not None
+        shared: list = []
+        if self.prefix_sharing and self.chunked_prefill:
+            shared, _ = self._probe_prefix(prompt)
+        need = self._horizon_pages(len(prompt), max_new_tokens) - len(shared)
+        return max(need, 0), self.pool.uncommitted_free
+
+    # the reference's name, bound without a second ``def``: the static
+    # analyzer resolves the reference runtime's ``engine.admission_pages``
+    # by the method name being unique
+    admission_pages = pages_to_admit
+
+    def _paged_admit(self, req: Request, slot: int,
+                     n: int) -> tuple[int, object] | None:
+        """Page-pool side of admission: probe the prefix index, commit the
+        worst-case page budget, map shared pages (refcounted) and allocate
+        owned pages covering the unshared prompt.  Returns (start,
+        row_cache) — the prefill start (shared tokens skip prefill; the
+        last prompt token always prefills, for the first-token logits)
+        and, past a shared prefix, the row holding it to prefill on top
+        of (None: a fresh row) — or None when the pool cannot commit
+        (counted as a conflict)."""
+        assert self.pool is not None
+        pool, ps = self.pool, self.page_size
+        shared: list[tuple[int, int]] = []
+        partial: tuple | None = None
+        if self.prefix_sharing and self.chunked_prefill:
+            shared, partial = self._probe_prefix(req.prompt)
+        commit = max(self._horizon_pages(n, req.max_new_tokens)
+                     - len(shared), 0)
+        if not pool.reserve(commit):
+            return None
+        self._slot_commit[slot] = commit
+        pages = self._slot_pages[slot]
+        borrowed = self._slot_shared[slot]
+        pages.clear()
+        borrowed.clear()
+        trow = self._page_table[slot]
+        trow[:] = TRASH_PAGE
+        shared_len = len(shared) * ps
+        if partial is not None:
+            shared = shared + [partial]
+            shared_len = n
+        for j, phys in shared:
+            pool.retain_page(phys)
+            pool.shared_hits += 1
+            pages[j] = phys
+            borrowed.add(j)
+            trow[j] = phys
+        # owned pages covering the rest of the prompt (the commitment
+        # covers every one of them, so these allocations cannot fail)
+        for j in range(len(shared), pool.pages_for_tokens(n)):
+            phys = self._alloc_page(slot)
+            assert phys is not None
+            pages[j] = phys
+            trow[j] = phys
+        self._table_dirty = True
+        start = min(shared_len, n - 1)
+        return start, self._gather_row(trow) if start > 0 else None
+
+    def _write_table(self, slot: int) -> np.ndarray:
+        """Scatter destinations of a finished prefill row: owned pages
+        keep their physical index, borrowed and unmapped pages divert to
+        the trash page (their content already lives in the pool or was
+        never real)."""
+        wtab = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        borrowed = self._slot_shared[slot]
+        for j, phys in self._slot_pages[slot].items():
+            if j not in borrowed:
+                wtab[j] = phys
+        return wtab
+
+    def _publish_slot_pages(self, slot: int, req: Request) -> None:
+        """Advertise the slot's owned FULL prompt pages in the prefix
+        index.  Partial tail pages are never published: decode writes into
+        them, and an owner never writes its own published page (published
+        spans end at or before the prompt, decode writes after it)."""
+        if not (self.paged and self.prefix_sharing):
+            return
+        assert self.pool is not None
+        ps = self.page_size
+        toks = tuple(int(t) for t in req.prompt)
+        borrowed = self._slot_shared[slot]
+        for j, phys in self._slot_pages[slot].items():
+            if j not in borrowed and (j + 1) * ps <= len(toks):
+                self.pool.publish_page(toks[:j * ps],
+                                       toks[j * ps:(j + 1) * ps], phys)
+
+    def _finish_row(self, slot: int, row, req: Request) -> None:
+        """Write a fully prefilled row into the batched cache (scattered
+        into the slot's owned pages on a paged engine, whose full prompt
+        pages are then published)."""
+        if self.paged:
+            self._scatter_row(row, self._write_table(slot))
+            self._publish_slot_pages(slot, req)
+        else:
+            self._write_row(slot, row)
+
     def release_slot(self, slot: int) -> None:
-        """Free a slot and write the pristine row over it, so the previous
-        tenant's KV is unreachable."""
+        """Free a slot so the previous tenant's KV is unreachable.  Dense:
+        write the pristine row over it.  Paged: drop the slot's page
+        references (a page frees when its last holder leaves; published
+        pages another request still shares survive), return unused
+        commitment, and park the table row on the trash page."""
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
-        self._write_row(slot, self._empty_row)
+        if not self.paged:
+            self._write_row(slot, self._empty_row)
+            return
+        assert self.pool is not None
+        for phys in self._slot_pages[slot].values():
+            self.pool.release_page(phys)
+        self._slot_pages[slot].clear()
+        self._slot_shared[slot].clear()
+        self.pool.unreserve(self._slot_commit[slot])
+        self._slot_commit[slot] = 0
+        self._page_table[slot, :] = TRASH_PAGE
+        self._table_dirty = True
 
-    def _prefill_schedule(self, n: int) -> collections.deque:
+    def _paged_preflight(self, active: list[int],
+                         n_left: np.ndarray) -> np.ndarray:
+        """Map or privatize every page the coming decode writes touch.
+
+        For each row writing positions [pos, pos + n_left): allocate
+        missing pages (commitment first), and privatize borrowed pages
+        before their first write — copy-on-write while other holders
+        remain, plain takeover (unpublish) when this slot is the last.  A
+        row that cannot get a page is clamped to its last mapped position
+        (the pool counts the stall; with ``page_reserve="worst"`` stalls
+        cannot happen).  Ends by uploading the table."""
+        assert self.pool is not None
+        pool, ps = self.pool, self.page_size
+        for i in active:
+            steps = int(n_left[i])
+            if steps <= 0:
+                continue
+            pos = int(self.slot_pos[i])
+            pages = self._slot_pages[i]
+            borrowed = self._slot_shared[i]
+            for j in range(pos // ps, (pos + steps - 1) // ps + 1):
+                phys = pages.get(j)
+                if phys is None:
+                    new = self._alloc_page(i)
+                    if new is None:
+                        n_left[i] = max(j * ps - pos, 0)
+                        break
+                    pages[j] = new
+                    self._page_table[i, j] = new
+                    self._table_dirty = True
+                elif j in borrowed:
+                    if pool.page_refcount(phys) > 1:
+                        new = self._alloc_page(i)
+                        if new is None:
+                            n_left[i] = max(j * ps - pos, 0)
+                            break
+                        self._copy_page(phys, new)
+                        pool.release_page(phys)
+                        pool.cow_copies += 1
+                        pages[j] = new
+                        self._page_table[i, j] = new
+                    else:
+                        # sole holder: take ownership; stop advertising
+                        # the original tokens (the content will diverge)
+                        pool.unpublish_page(phys)
+                    borrowed.discard(j)
+                    self._table_dirty = True
+        self._sync_table()
+        return n_left
+
+    def decode_headroom(self, k: int) -> int:
+        """Clamp a decode quantum to free-page headroom: the largest
+        k' <= k whose worst-case new-page demand across decodable rows the
+        pool can meet now.  Never below 1 (the preflight clamps, and
+        counts, rows a single step cannot map).  A dense engine returns k
+        unchanged."""
+        if not self.paged or k <= 1:
+            return max(int(k), 1)
+        assert self.pool is not None
+        ps = self.page_size
+        rows = []
+        for i, req in enumerate(self.slot_req):
+            if req is None or i in self._prefill:
+                continue
+            need = req.max_new_tokens + 1 - len(req.output)
+            room = self.max_len - 1 - int(self.slot_pos[i])
+            rows.append((int(self.slot_pos[i]), max(1, min(need, room)),
+                         self._slot_pages[i]))
+        free = self.pool.free_pages
+        best = 1
+        for kk in range(1, int(k) + 1):
+            demand = 0
+            for pos, budget, pages in rows:
+                steps = min(kk, budget)
+                demand += sum(
+                    1 for j in range(pos // ps, (pos + steps - 1) // ps + 1)
+                    if j not in pages)
+            if demand > free:
+                break
+            best = kk
+        return best
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``admission_pages``)
+    decode_k_headroom = decode_headroom
+
+    # ------------------------------------------------------------------
+    # Occupancy telemetry
+    # ------------------------------------------------------------------
+    @property
+    def cache_valid_tokens(self) -> int:
+        """Tokens resident on behalf of live requests (prefilled plus
+        decoded positions across occupied slots)."""
+        total = 0
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            st = self._prefill.get(i)
+            total += st.done if st is not None else int(self.slot_pos[i])
+        return total
+
+    @property
+    def cache_utilization(self) -> float:
+        """Peak valid tokens / peak resident token capacity (dense:
+        slots * max_len; paged: the page high-water mark).  Shared pages
+        are resident once but valid for every holder, so prefix sharing
+        can push this past 1.0."""
+        cap = (self.pool.peak_used * self.page_size
+               if self.paged and self.pool is not None
+               else self.slots * self.max_len)
+        return self.peak_cache_tokens / cap if cap else 0.0
+
+    def _note_occupancy(self) -> None:
+        self.peak_active_slots = max(self.peak_active_slots,
+                                     self.active_slots)
+        self.peak_cache_tokens = max(self.peak_cache_tokens,
+                                     self.cache_valid_tokens)
+
+    @property
+    def page_stats(self) -> dict:
+        """Pool counters ({} on a dense engine)."""
+        if not self.paged:
+            return {}
+        assert self.pool is not None
+        p = self.pool
+        return {"page_size": self.page_size, "total_pages": p.total,
+                "used_pages": p.used_pages, "peak_used": p.peak_used,
+                "committed": p.committed, "shared_hits": p.shared_hits,
+                "cow_copies": p.cow_copies, "stalls": p.stalls,
+                "conflicts": p.conflicts,
+                "published": p.published_pages}
+
+    def _prefill_schedule(self, n: int, start: int = 0) -> collections.deque:
         """Chunk sizes for an ``n``-token prompt: full chunks plus a
         power-of-two tail bucket (padded up), split further if the padding
-        would write past ``max_len``."""
+        would write past ``max_len``.  ``start`` skips tokens already
+        resident (shared prefix pages): the schedule covers [start, n)."""
         out: collections.deque = collections.deque()
-        done = 0
+        done = start
         c = self.prefill_chunk_len
         while n - done >= c:
             out.append(c)
@@ -363,12 +787,20 @@ class TorchServingEngine:
         slot = self._free_slot()
         if slot is None:
             return False
+        start, row = 0, None
+        if self.paged:
+            admitted = self._paged_admit(req, slot, n)
+            if admitted is None:
+                return False     # the pool cannot commit (a conflict)
+            start, row = admitted
         self.slot_req[slot] = req
         self.slot_pos[slot] = n
         if self.chunked_prefill:
             self._prefill[slot] = _PrefillState(
-                req=req, row_cache=self._fresh_row(),
-                schedule=self._prefill_schedule(n))
+                req=req, row_cache=row if row is not None
+                else self._fresh_row(),
+                schedule=self._prefill_schedule(n, start), done=start)
+            self._note_occupancy()
             if drain:
                 while not req.output:
                     self.prefill_step()
@@ -376,12 +808,13 @@ class TorchServingEngine:
         toks = self._to_device(prompt.astype(np.int64))[None, :]
         logits, row_cache = self._prefill_one(self.params, toks,
                                               self._fresh_row())
-        self._write_row(slot, row_cache)
+        self._finish_row(slot, row_cache, req)
         # the one device->host sync of a monolithic admission
         first = int(torch.argmax(logits[0]))
         self.host_syncs += 1
         self.tokens_decoded += 1
         self.prefill_tokens += n
+        self._note_occupancy()
         req.output.append(first)
         return True
 
@@ -417,7 +850,7 @@ class TorchServingEngine:
         self.prefill_pad_tokens += c - valid
         finished = not st.schedule
         if finished:
-            self._write_row(slot, st.row_cache)
+            self._finish_row(slot, st.row_cache, st.req)
             # the one device->host sync of an admission (finishing chunk)
             first = int(torch.argmax(logits[0]))
             if traces0 == self.version_cache.traces:
@@ -429,6 +862,7 @@ class TorchServingEngine:
             self.tokens_decoded += 1
             st.req.output.append(first)
             del self._prefill[slot]
+        self._note_occupancy()
         return PrefillQuantum(slot=slot, rid=st.req.rid, chunk=c,
                               tokens=valid, finished=finished)
 
@@ -467,6 +901,11 @@ class TorchServingEngine:
             # a live row always decodes at least one step
             n_left[i] = max(1, min(need, room))
             toks[i] = req.output[-1]
+        if self.paged:
+            cap = 1 if not fused else min(int(k), self.quantum_buckets[-1])
+            n_left = self._paged_preflight(active, np.minimum(n_left, cap))
+            if not any(n_left[i] > 0 for i in active):
+                return None      # every decodable row waits on a free page
         if not fused:
             # free slots decode garbage at position 0; the next
             # admission writes a whole prefilled row over them
@@ -519,6 +958,7 @@ class TorchServingEngine:
             self.slot_pos[i] += took
             self.tokens_decoded += took
             handle.row_steps[req.rid] = took
+        self._note_occupancy()               # peak before finished rows free
         for i in handle.active:
             req = self.slot_req[i]
             if len(req.output) >= req.max_new_tokens + 1 or \

@@ -11,7 +11,9 @@ and round the output to bf16 once; they differ only in summation order,
 so at most a rounding flip of the bf16 output (2e-2 relative and
 absolute covers one bf16 ulp at the values drawn here).  The SSD scan's
 fp32 state differs only in summation order (the kernel's cumsum of dt*a
-is a warp-level prefix sum): 1e-3 of its largest entry.  The whole model
+is a warp-level prefix sum): 1e-3 of its largest entry.  The paged
+attention kernel is held at the same 2e-2 against its plain version
+(gather, then dense attention).  The whole model
 compares logits after three residual layers of bf16 activations at 5e-2.
 """
 import numpy as np
@@ -22,9 +24,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_paged as fap  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref, \
-    ssd_ref  # noqa: E402
+    paged_attention_ref, ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import (H100_LEVEL_TILES, Request,  # noqa: E402
                                         ServingEngine)
@@ -214,3 +217,98 @@ def test_mamba2_engine_on_the_card_goes_through_ssd_scan(cuda_device):
     # chunks of two or more tokens: 3 -> (4); 39 -> (16, 16, 8);
     # 17 -> (16, 1), whose 1-token tail runs the decode step
     assert ssd.launch_count() == cfg.num_layers * 5
+
+
+def _paged_inputs(g, dev, b, kh, ps, kvl, d=256, h=8, t=512):
+    """bf16 q and pools of garbage (~1e3) with each row's valid keys on
+    shuffled pages; row 0's pages past its first point at the trash
+    page."""
+    n_slot = t // ps
+    n_pages = b * n_slot + 1
+    kp = (torch.randn(n_pages, ps, kh, d, generator=g, device=dev)
+          * 1e3).bfloat16()
+    vp = (torch.randn(n_pages, ps, kh, d, generator=g, device=dev)
+          * 1e3).bfloat16()
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1)[
+        :b * n_slot].reshape(b, n_slot).int()
+    table[0, 1:] = 0
+    for i, n in enumerate(kvl):
+        for j in range(-(-n // ps)):
+            rows = min(ps, n - j * ps)
+            ph = int(table[i, j])
+            kp[ph, :rows] = torch.randn(rows, kh, d, generator=g,
+                                        device=dev).bfloat16()
+            vp[ph, :rows] = torch.randn(rows, kh, d, generator=g,
+                                        device=dev).bfloat16()
+    q = torch.randn(b, 1, h, d, generator=g, device=dev).bfloat16()
+    return q, kp, vp, table
+
+
+# (page size, kv heads, window, softcap)
+PAGED_CUDA_CASES = [(8, 1, None, None), (16, 1, None, None),
+                    (32, 2, None, None), (16, 2, 64, None),
+                    (8, 1, None, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,kh,window,softcap", PAGED_CUDA_CASES)
+def test_flash_attention_paged_kernel_matches_plain(cuda_device, ps, kh,
+                                                    window, softcap):
+    g = torch.Generator(device=cuda_device).manual_seed(ps + kh)
+    kvl = [1, 37, 300, 512]
+    q, kp, vp, table = _paged_inputs(g, cuda_device, 4, kh, ps, kvl)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+    before = fap.launch_count()
+    got = fap.flash_attention_paged(q, kp, vp, table, offset=kvl_t - 1,
+                                    kv_valid_len=kvl_t, window=window,
+                                    softcap=softcap)
+    torch.cuda.synchronize()
+    assert fap.launch_count() == before + 1
+    want = paged_attention_ref(q, kp, vp, table, offset=kvl_t - 1,
+                               kv_valid_len=kvl_t, window=window,
+                               softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_paged_wrapper_refuses_what_the_kernel_cannot_take(
+        cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, kp, vp, table = _paged_inputs(g, cuda_device, 2, 1, 16, [3, 20])
+    with pytest.raises(TypeError):
+        fap.flash_attention_paged(q, kp, vp, table.long(), offset=0,
+                                  kv_valid_len=1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fap.flash_attention_paged(q[..., :36].contiguous(),
+                                  kp[..., :36].contiguous(),
+                                  vp[..., :36].contiguous(), table,
+                                  offset=0, kv_valid_len=1)
+    with pytest.raises(ValueError, match="shared"):
+        fap.flash_attention_paged(q.repeat(1, 16, 1, 1), kp, vp, table,
+                                  offset=0, kv_valid_len=1)
+
+
+@pytest.mark.cuda
+def test_paged_engine_on_the_card_goes_through_the_paged_kernel(
+        cuda_device):
+    cfg = get_reduced_config("gemma-2b")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    prompt = np.arange(1, 20, dtype=np.int32) * 7 % cfg.vocab_size
+    engine = ServingEngine(cfg, params, batch_slots=2, max_len=32,
+                           page_size=8)
+    engine.warmup()
+    fap.LAUNCHES.clear()
+    reqs = [Request(rid=i, prompt=prompt[:n], max_new_tokens=6)
+            for i, n in enumerate((3, 19, 12))]
+    assert engine.admit_request(reqs[1], drain=True)
+    # request 2 borrows request 1's first page and, as a partial tail,
+    # its second, which its first decode copies before writing
+    assert engine.admit_request(reqs[2], drain=True)
+    engine.run_to_completion([reqs[0]])
+    assert all(r.done and len(r.output) == 7 for r in reqs)
+    assert fap.launch_count() > 0
+    assert fap.launch_count() % cfg.num_layers == 0
+    stats = engine.page_stats
+    assert stats["used_pages"] == 0 and stats["committed"] == 0
+    assert stats["shared_hits"] == 2 and stats["cow_copies"] == 1, stats
