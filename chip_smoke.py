@@ -7,10 +7,17 @@ Run from the repository root, with one card visible:
 
 Phases, each fatal on failure:
   1. card: name and power limit, then the build of every CUDA kernel of
-     ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+     ``src/repro_torch/csrc`` (one nvcc per source, in parallel), with
+     each source's register count and spills from ptxas (``block_matmul``
+     and ``flash_attention`` must not spill);
   2. every kernel against its plain PyTorch version, in bf16 at the
      serving paths' shapes (``block_matmul`` and ``flash_attention``
-     under every distinct tile of the H100 level table; ``ssd_scan`` at
+     under every distinct tile of the H100 level table, launched twice
+     and equal bit for bit: B1 at M = 1, 4, 16 and a K that a cluster of
+     8 cannot split evenly, B2 with MQA and GQA, decode rows at positions
+     0 and 511 and 16-token chunks, and every block B2 is built for at
+     split 8 with the wrapper's shared-memory count held to the
+     kernel's; ``ssd_scan`` at
      the serve's chunks, a three-chunk monolithic prompt and B = 4;
      ``flash_attention_paged`` at page sizes 8, 16 and 32 over shuffled
      page tables, also against the dense kernel on the gathered cache),
@@ -44,7 +51,9 @@ Phases, each fatal on failure:
      against the dense cache);
   8. times at the serve's shapes: kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
-     or FLOPs at 989 TFLOP/s, whichever is larger).
+     or FLOPs at 989 TFLOP/s, whichever is larger); for B1 and B2 the
+     split and block count of each level's launch, and B1 and its
+     yardstick again after an L2 flush that leaves no dirty lines.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -55,8 +64,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -142,6 +153,17 @@ def cold_ms(fn, n: int, flush) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def ptxas_summary(log: str) -> dict:
+    """Kernels compiled, their largest register count and how many spill
+    (``nvcc -Xptxas -v``)."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spilling = [ln.strip() for ln in log.splitlines()
+                if "spill stores" in ln and
+                "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spilling_kernels": len(spilling), "spill_lines": spilling[:8]}
+
+
 def errors(got, want) -> tuple[float, float, bool]:
     """(max abs err, max rel err, within ATOL + RTOL*|want|)."""
     g, w = got.float(), want.float()
@@ -152,6 +174,11 @@ def errors(got, want) -> tuple[float, float, bool]:
 
 
 def check_kernels(dev, gen, report) -> dict:
+    """``block_matmul`` and ``flash_attention`` against their plain
+    versions under every distinct tile of the level table: each call
+    twice, the two results equal bit for bit (the splits combine in rank
+    order, no atomics).  Returns the worst |err| of each and the splits
+    and block counts the checks launched."""
     import torch
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import flash_attention as fa
@@ -159,12 +186,17 @@ def check_kernels(dev, gen, report) -> dict:
     from repro_torch.serving.engine import H100_LEVEL_TILES
 
     worst = {"block_matmul": 0.0, "flash_attention": 0.0}
+    splits = {"block_matmul": collections.Counter(),
+              "flash_attention": collections.Counter()}
     mm_tiles = list({tuple(sorted(t["matmul"].items())): t["matmul"]
                      for t in H100_LEVEL_TILES}.values())
     att_tiles = list({tuple(sorted(t["attention"].items())): t["attention"]
                       for t in H100_LEVEL_TILES}.values())
-    shapes = [(m, k, n) for m in (4, 16)
+    # the serve's GEMMs at M = 1, 4 and 16; K = 16576 = 259 tiles of 64,
+    # which a cluster of 8 cannot split evenly; ragged shapes
+    shapes = [(m, k, n) for m in (1, 4, 16)
               for k, n in ((2048, 16384), (16384, 2048))]
+    shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = 0
     tol = f"tolerance {ATOL:.4g} + {RTOL:.4g}*|plain|"
@@ -174,55 +206,132 @@ def check_kernels(dev, gen, report) -> dict:
              * k ** -0.5).bfloat16()
         want = matmul_ref(x, w)
         case_abs = case_rel = 0.0
+        used = set()
         for tiles in mm_tiles:
             got = bm.block_matmul_2d(x, w, **tiles)
+            again = bm.block_matmul_2d(x, w, **tiles)
             torch.cuda.synchronize()
+            _, split, blocks = bm.launch_geometry(m, k, n, **tiles)
+            used.add((split, blocks))
+            splits["block_matmul"][split] += 1
             ea, er, ok = errors(got, want)
             case_abs, case_rel = max(case_abs, ea), max(case_rel, er)
             n_checks += 1
-            require(ok, f"block_matmul {(m, k, n)} tiles {tiles}: max abs "
-                    f"err {ea:.4g}, max rel err {er:.4g} beyond {tol}")
+            require(ok, f"block_matmul {(m, k, n)} tiles {tiles} split "
+                    f"{split}: max abs err {ea:.4g}, max rel err {er:.4g} "
+                    f"beyond {tol}")
+            require(torch.equal(got, again), f"block_matmul {(m, k, n)} "
+                    f"tiles {tiles} split {split}: two launches differ")
         worst["block_matmul"] = max(worst["block_matmul"], case_abs)
         report(f"block_matmul M={m} K={k} N={n}: {len(mm_tiles)} tiles ok, "
-               f"max abs err {case_abs:.4g}, max rel err {case_rel:.4g} "
-               f"({tol})")
-    cases = {
-        "prefill chunk": dict(b=1, s=16, t=512, off=[32], kvl=[48]),
-        "decode": dict(b=4, s=1, t=512, off=[5, 100, 300, 511],
-                       kvl=[6, 101, 301, 512]),
-    }
-    for name, c in cases.items():
-        q = torch.randn(c["b"], c["s"], 8, 256, generator=gen,
-                        device=dev).bfloat16()
-        kk = torch.randn(c["b"], c["t"], 1, 256, generator=gen,
+               f"bitwise equal across two launches, max abs err "
+               f"{case_abs:.4g}, max rel err {case_rel:.4g} ({tol}); "
+               f"(split, blocks) {sorted(used)}")
+    # (label, B, S, KH, offsets, kv_valid): gemma-2b's 8 query heads at
+    # D 256; MQA and GQA (K = 2), decode rows at positions 0 and 511
+    cases = [
+        ("prefill chunk", 1, 16, 1, [32], [48]),
+        ("prefill chunk at 240", 1, 16, 1, [240], [256]),
+        ("decode", 4, 1, 1, [5, 100, 300, 511], [6, 101, 301, 512]),
+        ("decode at 0 and 511", 2, 1, 1, [0, 511], [1, 512]),
+        ("GQA K=2 decode", 4, 1, 2, [0, 100, 300, 511], [1, 101, 301, 512]),
+        ("GQA K=2 prefill chunk", 2, 16, 2, [0, 240], [16, 256]),
+    ]
+    for name, b, s, kh, offs, kvls in cases:
+        q = torch.randn(b, s, 8, 256, generator=gen, device=dev).bfloat16()
+        kk = torch.randn(b, MAX_LEN, kh, 256, generator=gen,
                          device=dev).bfloat16()
-        v = torch.randn(c["b"], c["t"], 1, 256, generator=gen,
+        v = torch.randn(b, MAX_LEN, kh, 256, generator=gen,
                         device=dev).bfloat16()
-        off = torch.tensor(c["off"], device=dev)
-        kvl = torch.tensor(c["kvl"], device=dev)
+        off = torch.tensor(offs, device=dev)
+        kvl = torch.tensor(kvls, device=dev)
         for window, softcap in ((None, None), (64, 50.0)):
             want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl,
                                  window=window, softcap=softcap)
             case_abs = case_rel = 0.0
+            used = set()
             for tiles in att_tiles:
-                got = fa.flash_attention(q, kk, v, offset=off,
-                                         kv_valid_len=kvl, window=window,
-                                         softcap=softcap, **tiles)
+                kw = dict(offset=off, kv_valid_len=kvl, window=window,
+                          softcap=softcap, **tiles)
+                got = fa.flash_attention(q, kk, v, **kw)
+                again = fa.flash_attention(q, kk, v, **kw)
                 torch.cuda.synchronize()
+                _, split, blocks = fa.launch_geometry(b, s, 8, kh, MAX_LEN,
+                                                      **tiles)
+                used.add((split, blocks))
+                splits["flash_attention"][split] += 1
                 ea, er, ok = errors(got, want)
                 case_abs, case_rel = max(case_abs, ea), max(case_rel, er)
                 n_checks += 1
                 require(ok, f"flash_attention {name} window={window} "
-                        f"softcap={softcap} tiles {tiles}: max abs err "
-                        f"{ea:.4g}, max rel err {er:.4g} beyond {tol}")
+                        f"softcap={softcap} tiles {tiles} split {split}: max "
+                        f"abs err {ea:.4g}, max rel err {er:.4g} beyond {tol}")
+                require(torch.equal(got, again), f"flash_attention {name} "
+                        f"window={window} softcap={softcap} tiles {tiles} "
+                        f"split {split}: two launches differ")
             worst["flash_attention"] = max(worst["flash_attention"],
                                            case_abs)
             report(f"flash_attention {name} window={window} "
-                   f"softcap={softcap}: {len(att_tiles)} tiles ok, max abs "
-                   f"err {case_abs:.4g}, max rel err {case_rel:.4g} ({tol})")
-    report(f"kernel checks: {n_checks} passed; max abs err "
-           f"block_matmul {worst['block_matmul']:.4g}, flash_attention "
-           f"{worst['flash_attention']:.4g} ({tol})")
+                   f"softcap={softcap}: {len(att_tiles)} tiles ok, bitwise "
+                   f"equal across two launches, max abs err {case_abs:.4g}, "
+                   f"max rel err {case_rel:.4g} ({tol}); (split, blocks) "
+                   f"{sorted(used)}")
+    # every block B2 is built for (head_dim x padded rows x key tile),
+    # split 8 across a 512-key cache: narrow heads leave warps without a
+    # share of the accumulator, and each rank's partial is packed by the
+    # threads that hold one.  The wrapper's shared-memory count (by which
+    # it refuses blocks) must be the kernel's own.
+    blocks_abs = 0.0
+    for d in fa.HEAD_DIMS:
+        for rows in (16, 32, 64):
+            for bkv in fa.BKV_CHOICES:
+                smem = fa.kernel_smem_bytes(rows, bkv, d)
+                require(smem == fa.smem_bytes(rows, bkv, d),
+                        f"flash_attention (bq={rows}, bkv={bkv}) D={d}: "
+                        f"kernel sizes {smem} bytes of shared memory, the "
+                        f"wrapper {fa.smem_bytes(rows, bkv, d)}")
+                sq = rows // 8
+                q = torch.randn(1, sq, 8, d, generator=gen,
+                                device=dev).bfloat16()
+                kk = torch.randn(1, MAX_LEN, 1, d, generator=gen,
+                                 device=dev).bfloat16()
+                v = torch.randn(1, MAX_LEN, 1, d, generator=gen,
+                                device=dev).bfloat16()
+                kw = dict(offset=MAX_LEN - sq, kv_valid_len=MAX_LEN,
+                          bq=rows, bkv=bkv)
+                _, split, _ = fa.launch_geometry(1, sq, 8, 1, MAX_LEN, rows,
+                                                 bkv)
+                got = fa.flash_attention(q, kk, v, **kw)
+                again = fa.flash_attention(q, kk, v, **kw)
+                torch.cuda.synchronize()
+                ea, er, ok = errors(got, attention_ref(q, kk, v, **{
+                    x: kw[x] for x in ("offset", "kv_valid_len")}))
+                blocks_abs = max(blocks_abs, ea)
+                n_checks += 1
+                splits["flash_attention"][split] += 1
+                require(ok and split > 1, f"flash_attention (bq={rows}, "
+                        f"bkv={bkv}) D={d} split {split}: max abs err "
+                        f"{ea:.4g}, max rel err {er:.4g} beyond {tol}")
+                require(torch.equal(got, again), f"flash_attention (bq="
+                        f"{rows}, bkv={bkv}) D={d}: two launches differ")
+    worst["flash_attention"] = max(worst["flash_attention"], blocks_abs)
+    report(f"flash_attention every built block (D {fa.HEAD_DIMS} x rows "
+           f"16/32/64 x bkv {fa.BKV_CHOICES}) at split 8: shared memory as "
+           f"the wrapper counts it, bitwise equal across two launches, max "
+           f"abs err {blocks_abs:.4g} ({tol})")
+    # B1's shared memory is sized by its source alone; every built tile
+    # fits the card
+    for tile in itertools.product(bm.BM_CHOICES, bm.BK_CHOICES,
+                                  bm.BN_CHOICES):
+        require(0 < bm.smem_bytes(*tile) <= fa.MAX_SMEM_BYTES,
+                f"block_matmul tile (bm, bk, bn) {tile}: "
+                f"{bm.smem_bytes(*tile)} bytes of shared memory")
+    report(f"kernel checks: {n_checks} passed, each launched twice with "
+           f"bitwise equal results; max abs err block_matmul "
+           f"{worst['block_matmul']:.4g}, flash_attention "
+           f"{worst['flash_attention']:.4g} ({tol}); splits launched "
+           + ", ".join(f"{k} {dict(sorted(v.items()))}"
+                       for k, v in splits.items()))
     return worst
 
 
@@ -955,6 +1064,10 @@ def timings(dev, gen, report) -> list[dict]:
     def flush():
         scratch.zero_()
 
+    def read_flush():
+        # evicts the L2 with clean lines: nothing to write back first
+        scratch.view(torch.int64).sum()
+
     rows = []
     level0 = H100_LEVEL_TILES[0]
     # block_matmul: the decode step's MLP GEMMs (M = 4 slots)
@@ -967,23 +1080,36 @@ def timings(dev, gen, report) -> list[dict]:
              * k ** -0.5).bfloat16()
         per_level = [cold_ms(lambda t=t: bm.block_matmul_2d(
             x, w, **t["matmul"]), 20, flush) for t in H100_LEVEL_TILES]
+        geometry = [bm.launch_geometry(m, k, n, **t["matmul"])[1:]
+                    for t in H100_LEVEL_TILES]
         nbytes = (m * k + k * n + m * n) * 2
         flops = 2 * m * k * n
         row = {"name": "block_matmul", "shape": label, "m": m, "k": k,
                "n": n, "ms": per_level[0], "ms_per_level": per_level,
+               "split": geometry[0][0], "blocks": geometry[0][1],
+               "split_blocks_per_level": geometry,
                "plain_ms": cold_ms(lambda: matmul_ref(x, w), 20, flush),
                "library_ms": cold_ms(lambda: torch.matmul(x, w), 20, flush),
+               "ms_l2_clean": cold_ms(lambda: bm.block_matmul_2d(
+                   x, w, **level0["matmul"]), 20, read_flush),
+               "library_ms_l2_clean": cold_ms(lambda: torch.matmul(x, w),
+                                              20, read_flush),
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / BF16_FLOPS) * 1e3,
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                             >= flops / BF16_FLOPS else "operations")}
         rows.append(row)
         report(f"time block_matmul {label} M={m} K={k} N={n}: kernel "
-               f"{row['ms']:.4f} ms (level 0 tiles {level0['matmul']}), "
-               f"plain {row['plain_ms']:.4f} ms, torch.matmul "
+               f"{row['ms']:.4f} ms (level 0 tiles {level0['matmul']}, "
+               f"split {row['split']}, {row['blocks']} blocks), plain "
+               f"{row['plain_ms']:.4f} ms, torch.matmul "
                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-               f"({row['bound_by']}); per level ms "
-               + ", ".join(f"{v:.4f}" for v in per_level))
+               f"({row['bound_by']}); after a read-only L2 flush kernel "
+               f"{row['ms_l2_clean']:.4f}, torch.matmul "
+               f"{row['library_ms_l2_clean']:.4f} ms; per level ms "
+               + ", ".join(f"{v:.4f}" for v in per_level)
+               + "; per level (split, blocks) "
+               + ", ".join(f"{g}" for g in geometry))
     # flash_attention: decode over the serve's positions and a prefill
     # chunk; the bound counts the keys this data makes visible
     for label, b, s, offs in (("decode", 4, 1, [68, 140, 260, 300]),
@@ -997,6 +1123,8 @@ def timings(dev, gen, report) -> list[dict]:
         per_level = [cold_ms(lambda a=tl["attention"]: fa.flash_attention(
             q, kk, v, offset=off, kv_valid_len=kvl, **a), 20, flush)
             for tl in H100_LEVEL_TILES]
+        geometry = [fa.launch_geometry(b, s, h, 1, t, **tl["attention"])[1:]
+                    for tl in H100_LEVEL_TILES]
         qpos = off[:, None] + torch.arange(s, device=dev)
         mask = (torch.arange(t, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]            # (B,1,S,T)
@@ -1011,7 +1139,8 @@ def timings(dev, gen, report) -> list[dict]:
             sum(o + i + 1 for i in range(s)) for o in offs)
         row = {"name": "flash_attention", "shape": label, "b": b, "s": s,
                "t": t, "offsets": offs, "ms": per_level[0],
-               "ms_per_level": per_level,
+               "ms_per_level": per_level, "split": geometry[0][0],
+               "blocks": geometry[0][1], "split_blocks_per_level": geometry,
                "plain_ms": cold_ms(lambda: attention_ref(
                    q, kk, v, offset=off, kv_valid_len=kvl), 20, flush),
                "library_ms": cold_ms(library, 20, flush),
@@ -1022,10 +1151,13 @@ def timings(dev, gen, report) -> list[dict]:
         rows.append(row)
         report(f"time flash_attention {label} B={b} S={s} T={t} "
                f"offsets={offs}: kernel {row['ms']:.4f} ms (level 0 tiles "
-               f"{level0['attention']}), plain {row['plain_ms']:.4f} ms, "
+               f"{level0['attention']}, split {row['split']}, "
+               f"{row['blocks']} blocks), plain {row['plain_ms']:.4f} ms, "
                f"sdpa {row['library_ms']:.4f} ms, bound "
                f"{row['bound_ms']:.5f} ms ({row['bound_by']}); per level ms "
-               + ", ".join(f"{v:.4f}" for v in per_level))
+               + ", ".join(f"{v:.4f}" for v in per_level)
+               + "; per level (split, blocks) "
+               + ", ".join(f"{g}" for g in geometry))
     return rows
 
 
@@ -1216,11 +1348,15 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"=== {k}\n{v}" for k, v in logs.items()))
-    spills = sum(" 0 bytes spill stores" not in ln
-                 for v in logs.values() for ln in v.splitlines()
-                 if "spill stores" in ln)
+    ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
     report(f"kernel build: {build_s:.1f} s for {sorted(logs) or 'nothing'} "
-           f"(nvcc sm_90a; {spills} kernel(s) with register spills)")
+           "(nvcc sm_90a); ptxas: " + "; ".join(
+               f"{name} {p['kernels']} kernels, at most {p['max_registers']} "
+               f"registers, {p['spilling_kernels']} spilling"
+               for name, p in sorted(ptxas.items())))
+    for name in ("block_matmul", "flash_attention"):
+        require(name not in ptxas or ptxas[name]["spilling_kernels"] == 0,
+                f"{name}: register spills {ptxas[name]['spill_lines']}")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     worst = check_kernels(dev, gen, report)
@@ -1303,7 +1439,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "build_s": build_s, "serve": served,
+        "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "whole_model": model_check, "times": times,
         "kernels": kernels, "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))

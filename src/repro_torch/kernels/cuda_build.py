@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/repro_torch/lib<name>.so`` at the repository root
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``).  The build
-happens at first use and again whenever a source is newer than its
-library; :func:`build` compiles every stale source with one ``nvcc``
+happens at first use and again whenever a source, or a ``csrc/*.cuh``
+header it includes, is newer than its library; :func:`build` compiles every stale source with one ``nvcc``
 process per source, all started together.  Nothing here runs at import
 time: the CPU tests import every module of the port on a machine
 without ``nvcc``.
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +47,27 @@ def lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every header it includes by a quoted
+    ``#include`` from beside it, transitively."""
+    deps = [CSRC / f"{name}.cu"]
+    for path in deps:                       # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep.exists() and dep not in deps:
+                deps.append(dep)
+    return deps
+
+
 def _stale(name: str) -> bool:
     lib = lib_path(name)
-    return not lib.exists() or \
-        lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < dep.stat().st_mtime for dep in sources_of(name))
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:

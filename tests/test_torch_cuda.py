@@ -89,6 +89,92 @@ def test_flash_attention_kernel_matches_plain(cuda_device, level):
             assert torch.all(got[2] == 0)
 
 
+# (m, k, n, split at level 0): the down projection split across a cluster
+# of 8, a K of 259 tiles that 8 blocks cannot share evenly, products
+# with too few K tiles to split (4 and 1 tiles) and ones split in two
+SPLIT_GEMMS = [(4, 16384, 2048, 8), (4, 16576, 2048, 8), (4, 256, 512, 1),
+               (1, 2048, 16384, 2), (300, 512, 256, 2), (300, 64, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,split", SPLIT_GEMMS)
+def test_block_matmul_split_k_is_right_and_deterministic(cuda_device, m, k,
+                                                         n, split):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    tiles = H100_LEVEL_TILES[0]["matmul"]
+    assert bm.launch_geometry(m, k, n, **tiles)[1] == split
+    x = torch.randn(m, k, generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=cuda_device)
+         * k ** -0.5).bfloat16()
+    before = bm.launch_count()
+    got = bm.block_matmul_2d(x, w, **tiles)
+    again = bm.block_matmul_2d(x, w, **tiles)
+    assert bm.launch_count() == before + 2
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(),
+                               rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    assert torch.equal(got, again)
+
+
+# (B, S, KH, offsets, kv_valid, D, T, tiles): gemma-2b's 8 query heads at
+# D 256 over a 512-slot cache under levels 0 and 9 (tiles None): decode
+# rows at 0 and 511, GQA, the 16-token chunk.  Then narrow heads whose
+# accumulator fewer than 8 warps hold (D 32 at 32 rows, D 64 at 16), where
+# each rank's partial is packed by the threads that hold it
+ATTENTION_SPLIT_CASES = [
+    (4, 1, 1, [0, 100, 300, 511], [1, 101, 301, 512], 256, 512, None),
+    (4, 1, 2, [0, 100, 300, 511], [1, 101, 301, 512], 256, 512, None),
+    (1, 16, 1, [240], [256], 256, 512, None),
+    (2, 16, 2, [0, 240], [16, 256], 256, 512, None),
+    (1, 4, 1, [124], [128], 32, 128, dict(bq=32, bkv=16)),
+    (2, 2, 1, [90, 126], [92, 128], 64, 128, dict(bq=16, bkv=16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kh,offsets,kv_valid,d,t,tiles",
+                         ATTENTION_SPLIT_CASES)
+def test_flash_attention_split_kv_is_right_and_deterministic(
+        cuda_device, b, s, kh, offsets, kv_valid, d, t, tiles):
+    g = torch.Generator(device=cuda_device).manual_seed(b * 16 + s + kh + d)
+    q = torch.randn(b, s, 8, d, generator=g, device=cuda_device).bfloat16()
+    kk = torch.randn(b, t, kh, d, generator=g, device=cuda_device).bfloat16()
+    v = torch.randn(b, t, kh, d, generator=g, device=cuda_device).bfloat16()
+    off = torch.tensor(offsets, device=cuda_device)
+    kvl = torch.tensor(kv_valid, device=cuda_device)
+    levels = (0, len(H100_LEVEL_TILES) - 1)
+    for tl in [tiles] if tiles else \
+            [H100_LEVEL_TILES[lv]["attention"] for lv in levels]:
+        assert fa.launch_geometry(b, s, 8, kh, t, **tl)[1] > 1
+        got = fa.flash_attention(q, kk, v, offset=off, kv_valid_len=kvl,
+                                 **tl)
+        again = fa.flash_attention(q, kk, v, offset=off, kv_valid_len=kvl,
+                                   **tl)
+        want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_kernels_report_the_shared_memory_the_wrappers_expect(cuda_device):
+    # B1's layout lives in its CUDA source alone: every tile the level
+    # table gives the serve's GEMMs fits the card (the ring exceeds 48 KB,
+    # so the kernel raises its dynamic limit)
+    for level in H100_LEVEL_TILES:
+        for m, k, n in ((4, 2048, 16384), (16, 16384, 2048)):
+            tile = bm.effective_tiles(m, k, n, **level["matmul"])
+            assert 0 < bm.smem_bytes(*tile) <= fa.MAX_SMEM_BYTES
+    assert bm.smem_bytes(8, 64, 128) == -1
+    # B2's wrapper refuses blocks by its own count: it must be the kernel's
+    for d in fa.HEAD_DIMS:
+        for bkv in fa.BKV_CHOICES:
+            for bq in range(1, fa.MAX_ROWS + 1):
+                assert fa.kernel_smem_bytes(bq, bkv, d) == \
+                    fa.smem_bytes(bq, bkv, d)
+    assert fa.kernel_smem_bytes(fa.MAX_ROWS + 1, 64, 256) == -1
+    assert fa.kernel_smem_bytes(16, 64, 48) == -1
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     x = torch.zeros(300, 64, device=cuda_device, dtype=torch.bfloat16)
@@ -102,6 +188,22 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="shared"):
         fa.flash_attention(q, kv, kv, offset=0, kv_valid_len=128, bq=128,
                            bkv=128)
+    # more than 64 flattened query rows a block; a head_dim not built;
+    # a base that is not 16-byte aligned
+    with pytest.raises(ValueError, match="built for"):
+        fa.flash_attention(q[..., :128].contiguous(),
+                           kv[..., :128].contiguous(),
+                           kv[..., :128].contiguous(), offset=0,
+                           kv_valid_len=128, bq=128, bkv=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                           kv[..., :48].contiguous(), offset=0,
+                           kv_valid_len=128)
+    flat = torch.zeros(1 + 128 * 8 * 256, device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(flat[1:].view(1, 128, 8, 256), kv, kv, offset=0,
+                           kv_valid_len=128)
 
 
 @pytest.mark.cuda
