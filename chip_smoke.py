@@ -3,25 +3,30 @@
 
 Run from the repository root, with one card visible:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--b2-reference TREE]
 
 Phases, each fatal on failure:
   1. card: name and power limit, then the build of every CUDA kernel of
-     ``src/repro_torch/csrc`` (one nvcc per source, in parallel), with
-     each source's register count and spills from ptxas (``block_matmul``
-     and ``flash_attention`` must not spill);
+     ``src/repro_torch/csrc`` (one nvcc per library, in parallel: the four
+     sources and the SSD scan's clock-stamped variant), with each
+     library's register count and spills from ptxas (none of the four
+     sources may spill);
   2. every kernel against its plain PyTorch version, in bf16 at the
-     serving paths' shapes (``block_matmul`` and ``flash_attention``
-     under every distinct tile of the H100 level table, launched twice
-     and equal bit for bit: B1 at M = 1, 4, 16 and a K that a cluster of
-     8 cannot split evenly, B2 with MQA and GQA, decode rows at positions
-     0 and 511 and 16-token chunks, and every block B2 is built for at
-     split 8 with the wrapper's shared-memory count held to the
-     kernel's; ``ssd_scan`` at
-     the serve's chunks, a three-chunk monolithic prompt and B = 4;
-     ``flash_attention_paged`` at page sizes 8, 16 and 32 over shuffled
-     page tables, also against the dense kernel on the gathered cache),
-     plus ragged shapes;
+     serving paths' shapes, each call launched twice and equal bit for
+     bit (``block_matmul`` and ``flash_attention`` under every distinct
+     tile of the H100 level table: B1 at M = 1, 4, 16 and a K that a
+     cluster of 8 cannot split evenly, B2 with MQA and GQA, decode rows at
+     positions 0 and 511 and 16-token chunks, and every block B2 is built
+     for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
+     monolithic prompt, B = 4 and ragged shapes, with B and C per group
+     (G = 1, as the model passes them) and per head; ``flash_attention_paged``
+     at page sizes 8, 16 and 32 over shuffled page tables at split 8, rows
+     with no visible key, windowed and softcapped cases, gemma-2b's and
+     starcoder2-3b's head shapes, also against the dense kernel), plus
+     ragged shapes; every wrapper's shared-memory count held to the
+     kernel's; with ``--b2-reference TREE`` every B2 output also equal to
+     that checkout's B2 build bit for bit; then ``ssd_scan``'s phase
+     breakdown (clock stamps per phase) at 16 and 600 tokens;
   3. serve gemma-2b: full width (18 layers, seeded random weights made on
      the card) through ``ServingEngine(batch_slots=4, max_len=512)`` after
      ``warmup()``: six requests admitted with ``admit_request`` +
@@ -51,8 +56,8 @@ Phases, each fatal on failure:
      against the dense cache);
   8. times at the serve's shapes: kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
-     or FLOPs at 989 TFLOP/s, whichever is larger); for B1 and B2 the
-     split and block count of each level's launch, and B1 and its
+     or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
+     count of each launch (for B1 and B2 at each level), and B1 and its
      yardstick again after an L2 flush that leaves no dirty lines.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -173,12 +178,49 @@ def errors(got, want) -> tuple[float, float, bool]:
     return diff.max().item(), rel.max().item(), ok
 
 
-def check_kernels(dev, gen, report) -> dict:
+def reference_b2(tree: str):
+    """``flash_attention`` built from another checkout's
+    ``src/repro_torch/csrc`` (for example the parent commit's, unpacked
+    with ``git archive``) into that checkout's build directory."""
+    import ctypes
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
+    saved = cuda_build.CSRC, cuda_build.BUILD_DIR
+    root = pathlib.Path(tree).resolve()
+    cuda_build.CSRC = root / "src" / "repro_torch" / "csrc"
+    cuda_build.BUILD_DIR = root / "build" / "repro_torch"
+    try:
+        cuda_build.build(("flash_attention",))
+        lib = ctypes.CDLL(str(cuda_build.lib_path("flash_attention")))
+    finally:
+        cuda_build.CSRC, cuda_build.BUILD_DIR = saved
+    lib.flash_attention_bf16.argtypes = \
+        fa._lib().flash_attention_bf16.argtypes
+    lib.flash_attention_bf16.restype = ctypes.c_int
+    lib.cuda_error_name.argtypes = [ctypes.c_int]
+    lib.cuda_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+def with_b2(lib, call):
+    """``call()`` with ``flash_attention`` launching ``lib``'s kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    saved = fa._lib()
+    fa._LIB = lib
+    try:
+        return call()
+    finally:
+        fa._LIB = saved
+
+
+def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     """``block_matmul`` and ``flash_attention`` against their plain
     versions under every distinct tile of the level table: each call
     twice, the two results equal bit for bit (the splits combine in rank
-    order, no atomics).  Returns the worst |err| of each and the splits
-    and block counts the checks launched."""
+    order, no atomics).  With ``b2_ref`` (another build of B2, see
+    ``reference_b2``) every B2 output must also equal that build's bit for
+    bit.  Returns the worst |err| of each and the splits and block counts
+    the checks launched."""
     import torch
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import flash_attention as fa
@@ -198,7 +240,7 @@ def check_kernels(dev, gen, report) -> dict:
               for k, n in ((2048, 16384), (16384, 2048))]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
-    n_checks = 0
+    n_checks = n_ref = 0
     tol = f"tolerance {ATOL:.4g} + {RTOL:.4g}*|plain|"
     for m, k, n in shapes:
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
@@ -255,6 +297,12 @@ def check_kernels(dev, gen, report) -> dict:
                           softcap=softcap, **tiles)
                 got = fa.flash_attention(q, kk, v, **kw)
                 again = fa.flash_attention(q, kk, v, **kw)
+                if b2_ref is not None:
+                    n_ref += 1
+                    require(torch.equal(got, with_b2(
+                        b2_ref, lambda: fa.flash_attention(q, kk, v, **kw))),
+                        f"flash_attention {name} tiles {tiles}: differs "
+                        "from the reference build")
                 torch.cuda.synchronize()
                 _, split, blocks = fa.launch_geometry(b, s, 8, kh, MAX_LEN,
                                                       **tiles)
@@ -303,6 +351,12 @@ def check_kernels(dev, gen, report) -> dict:
                                                  bkv)
                 got = fa.flash_attention(q, kk, v, **kw)
                 again = fa.flash_attention(q, kk, v, **kw)
+                if b2_ref is not None:
+                    n_ref += 1
+                    require(torch.equal(got, with_b2(
+                        b2_ref, lambda: fa.flash_attention(q, kk, v, **kw))),
+                        f"flash_attention (bq={rows}, bkv={bkv}) D={d}: "
+                        "differs from the reference build")
                 torch.cuda.synchronize()
                 ea, er, ok = errors(got, attention_ref(q, kk, v, **{
                     x: kw[x] for x in ("offset", "kv_valid_len")}))
@@ -326,6 +380,9 @@ def check_kernels(dev, gen, report) -> dict:
         require(0 < bm.smem_bytes(*tile) <= fa.MAX_SMEM_BYTES,
                 f"block_matmul tile (bm, bk, bn) {tile}: "
                 f"{bm.smem_bytes(*tile)} bytes of shared memory")
+    if b2_ref is not None:
+        report(f"flash_attention: {n_ref} outputs equal the reference "
+               "build's bit for bit")
     report(f"kernel checks: {n_checks} passed, each launched twice with "
            f"bitwise equal results; max abs err block_matmul "
            f"{worst['block_matmul']:.4g}, flash_attention "
@@ -372,11 +429,15 @@ def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3):
 
 def check_paged(dev, gen, report) -> float:
     """``flash_attention_paged`` against its plain version (gather, then
-    dense attention) at gemma-2b's widths (H 8, K 1, D 256) and at a GQA
-    shape (K 2): page sizes 8, 16 and 32, B = 1 and 4, kv_valid of 1,
-    ragged and a full MAX_LEN slot, shuffled tables with garbage in the
-    trash page and the unmapped entries, a window and a softcap case;
-    and against the dense kernel on the gathered cache.  Returns the
+    dense attention) at gemma-2b's widths (H 8, K 1, D 256), at a GQA shape
+    (K 2) and at starcoder2-3b's (H 24, K 2, D 128): page sizes 8, 16 and
+    32, B = 1 and 4, kv_valid of 1, ragged, a full MAX_LEN slot and rows
+    with no visible key (which must write 0), shuffled tables with garbage
+    in the trash page and the unmapped entries, windowed and softcapped
+    cases; each call launched twice and equal bit for bit, at the split
+    ``launch_geometry`` gives (the largest, 8, among them); and against the
+    dense kernel on the gathered cache.  The wrapper's shared-memory count
+    is held to the kernel's for every block it is built for.  Returns the
     worst |err| against the plain version."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -385,100 +446,152 @@ def check_paged(dev, gen, report) -> float:
 
     tol = f"tolerance {ATOL:.4g} + {RTOL:.4g}*|plain|"
     kvls = {"kv_valid 1": [1, 1, 1, 1], "ragged": [37, 100, 260, 301],
-            "full slot": [MAX_LEN] * 4}
-    cases = [(kh, ps, b, name, None, None) for kh in (1, 2)
+            "full slot": [MAX_LEN] * 4, "no visible key": [0, 37, 0, 301]}
+    # (H, K, D, page size, B, kv_valid, window, softcap)
+    cases = [(8, kh, 256, ps, b, name, None, None) for kh in (1, 2)
              for ps in (8, 16, 32) for b in (1, 4) for name in kvls]
-    cases += [(1, 16, 4, "ragged", 64, None), (2, 8, 4, "ragged", None, 50.0),
-              (1, 32, 4, "full slot", 100, 30.0)]
+    cases += [(8, 1, 256, 16, 4, "ragged", 64, None),
+              (8, 2, 256, 8, 4, "ragged", None, 50.0),
+              (8, 1, 256, 32, 4, "full slot", 100, 30.0),
+              (24, 2, 128, 16, 4, "ragged", None, None),
+              (24, 2, 128, 8, 4, "full slot", 200, None)]
     worst = worst_dense = 0.0
-    for kh, ps, b, name, window, softcap in cases:
+    splits = collections.Counter()
+    for h, kh, d, ps, b, name, window, softcap in cases:
         kvl = torch.tensor(kvls[name][:b], dtype=torch.int32, device=dev)
-        q, kp, vp, table = paged_inputs(gen, dev, b, 8, kh, 256, ps, kvl)
+        q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, ps, kvl)
         off = kvl - 1
-        got = fap.flash_attention_paged(q, kp, vp, table, offset=off,
-                                        kv_valid_len=kvl, window=window,
-                                        softcap=softcap)
+        kw = dict(offset=off, kv_valid_len=kvl, window=window,
+                  softcap=softcap)
+        got = fap.flash_attention_paged(q, kp, vp, table, **kw)
+        again = fap.flash_attention_paged(q, kp, vp, table, **kw)
         torch.cuda.synchronize()
-        want = paged_attention_ref(q, kp, vp, table, offset=off,
-                                   kv_valid_len=kvl, window=window,
-                                   softcap=softcap)
+        split, blocks = fap.launch_geometry(b, 1, h, kh, ps, table.shape[1])
+        splits[split] += 1
+        want = paged_attention_ref(q, kp, vp, table, **kw)
         ea, er, ok = errors(got, want)
-        label = (f"flash_attention_paged K={kh} page {ps} B={b} {name} "
-                 f"window={window} softcap={softcap}")
+        label = (f"flash_attention_paged H={h} K={kh} D={d} page {ps} B={b} "
+                 f"{name} window={window} softcap={softcap} split {split}")
         require(ok and bool(torch.isfinite(got).all()),
                 f"{label}: max abs err {ea:.4g}, max rel err {er:.4g} "
                 f"beyond {tol}")
+        require(torch.equal(got, again), f"{label}: two launches differ")
+        empty = kvl == 0
+        require(bool((got[empty] == 0).all()),
+                f"{label}: a row with no visible key wrote nonzero")
         dense = fa.flash_attention(
             q, fap.gather_pages(kp, table).contiguous(),
-            fap.gather_pages(vp, table).contiguous(), offset=off,
-            kv_valid_len=kvl, window=window, softcap=softcap)
+            fap.gather_pages(vp, table).contiguous(), **kw)
         torch.cuda.synchronize()
         da, dr, dok = errors(got, dense)
         require(dok, f"{label}: against the dense kernel on the gathered "
                 f"cache max abs err {da:.4g}, max rel err {dr:.4g} beyond "
                 f"{tol}")
         worst, worst_dense = max(worst, ea), max(worst_dense, da)
-        report(f"{label}: max abs err {ea:.4g}, max rel err {er:.4g}; "
-               f"against the dense kernel {da:.4g} ({tol})")
-    report(f"flash_attention_paged checks: {len(cases)} passed; max abs err "
-           f"{worst:.4g} against the plain version, {worst_dense:.4g} "
-           f"against the dense kernel on the gathered cache")
+        report(f"{label} ({blocks} blocks): max abs err {ea:.4g}, max rel "
+               f"err {er:.4g}, bitwise equal across two launches; against "
+               f"the dense kernel {da:.4g} ({tol})")
+    require(splits[fa.MAX_SPLIT] > 0, f"no paged check at split "
+            f"{fa.MAX_SPLIT}: {dict(splits)}")
+    n_smem = 0
+    for d in fa.HEAD_DIMS:
+        for rows in (1, 8, 16, 17, 32, 33, 64, 200):
+            for n_slot in (1, 32, 64, 1000):
+                smem = fap.kernel_smem_bytes(rows, d, n_slot)
+                n_smem += 1
+                require(smem == fap.smem_bytes(rows, d, n_slot),
+                        f"flash_attention_paged rows={rows} D={d} "
+                        f"n_slot={n_slot}: kernel sizes {smem} bytes of "
+                        f"shared memory, the wrapper "
+                        f"{fap.smem_bytes(rows, d, n_slot)}")
+    report(f"flash_attention_paged checks: {len(cases)} passed, each "
+           f"launched twice with bitwise equal results, splits "
+           f"{dict(sorted(splits.items()))}; max abs err {worst:.4g} against "
+           f"the plain version, {worst_dense:.4g} against the dense kernel "
+           f"on the gathered cache; shared memory as the wrapper counts it "
+           f"for {n_smem} blocks")
     return worst
 
 
-def ssd_inputs(gen, dev, bsz, l, h, p, n, with_init):
+def ssd_inputs(gen, dev, bsz, l, h, p, n, with_init, groups=None):
     """bf16 x, B, C and an fp32 state of unit scale; dt = softplus of a
-    normal (as the mixer makes it), a in (-2.1, -0.1)."""
+    normal (as the mixer makes it), a in (-2.1, -0.1).  B and C per head,
+    or per group with ``groups`` (as the model passes them)."""
     import torch
+    g = h if groups is None else groups
     x = torch.randn(bsz, l, h, p, generator=gen, device=dev).bfloat16()
     dt = torch.nn.functional.softplus(
         torch.randn(bsz, l, h, generator=gen, device=dev) - 1.0)
     a = -torch.rand(h, generator=gen, device=dev) * 2.0 - 0.1
-    b = torch.randn(bsz, l, h, n, generator=gen, device=dev).bfloat16()
-    c = torch.randn(bsz, l, h, n, generator=gen, device=dev).bfloat16()
+    b = torch.randn(bsz, l, g, n, generator=gen, device=dev).bfloat16()
+    c = torch.randn(bsz, l, g, n, generator=gen, device=dev).bfloat16()
     h0 = (torch.randn(bsz, h, p, n, generator=gen, device=dev)
           if with_init else None)
     return x, dt, a, b, c, h0
 
 
 def check_ssd(dev, gen, report) -> float:
-    """``ssd_scan`` against its plain version in the serve's types: y
-    within ATOL + RTOL*|plain|, the fp32 final state within STATE_RTOL of
-    its largest entry.  Returns the worst |y| error."""
+    """``ssd_scan`` against its plain version in the serve's types, on the
+    per-head copies of B and C: y within ATOL + RTOL*|plain|, the fp32
+    final state within STATE_RTOL of its largest entry; each call launched
+    twice and equal bit for bit; B and C per group (G = 1, mamba2-780m's
+    layout, as the model passes them) and per head (G = H).  The wrapper's
+    shared-memory count is held to the kernel's.  Returns the worst |y|
+    error."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_ref
 
-    # (label, B, L, H, P, N, chunk, initial state)
-    cases = [(f"serve chunk L={l}", 1, l, 48, 64, 128, 256, True)
+    # (label, B, L, H, G, P, N, chunk, initial state)
+    cases = [(f"serve chunk L={l}", 1, l, 48, 1, 64, 128, 256, True)
              for l in (2, 4, 8, 16)]
+    cases += [("serve chunk L=16, per head", 1, 16, 48, 48, 64, 128, 256,
+               True)]
     cases += [(f"monolithic L={MONO_LEN} (3 chunks, ragged tail)", 1,
-               MONO_LEN, 48, 64, 128, 256, init) for init in (False, True)]
-    cases += [("batch 4 L=16", 4, 16, 48, 64, 128, 256, True),
-              ("ragged L=37 P=20 N=7", 2, 37, 3, 20, 7, 16, True),
-              ("ragged L=5 P=33 N=130", 3, 5, 2, 33, 130, 4, False)]
+               MONO_LEN, 48, 1, 64, 128, 256, init) for init in (False, True)]
+    cases += [(f"monolithic L={MONO_LEN}, per head", 1, MONO_LEN, 48, 48, 64,
+               128, 256, True)]
+    cases += [("batch 4 L=16", 4, 16, 48, 1, 64, 128, 256, True),
+              ("ragged L=37 P=20 N=7", 2, 37, 3, 3, 20, 7, 16, True),
+              ("ragged L=5 P=33 N=130", 3, 5, 2, 1, 33, 130, 4, False),
+              ("two groups L=40 P=96", 2, 40, 4, 2, 96, 64, 16, True)]
     worst = 0.0
     tol = f"y {ATOL:.4g} + {RTOL:.4g}*|plain|, state {STATE_RTOL:.4g}*max"
-    for label, bsz, l, h, p, n, chunk, init in cases:
-        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, bsz, l, h, p, n, init)
-        y, state = ssd.ssd_scan(x, dt, a, b, c, chunk_size=chunk,
-                                initial_state=h0)
+    for label, bsz, l, h, g, p, n, chunk, init in cases:
+        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, bsz, l, h, p, n, init, g)
+        kw = dict(chunk_size=chunk, initial_state=h0)
+        y, state = ssd.ssd_scan(x, dt, a, b, c, **kw)
+        y2, state2 = ssd.ssd_scan(x, dt, a, b, c, **kw)
         torch.cuda.synchronize()
-        want_y, want_s = ssd_ref(x, dt, a, b, c, chunk_size=chunk,
-                                 initial_state=h0)
+        split, blocks = ssd.launch_geometry(bsz, h, p)
+        want_y, want_s = ssd_ref(x, dt, a, b.repeat_interleave(h // g, 2),
+                                 c.repeat_interleave(h // g, 2), **kw)
         ea, er, ok = errors(y, want_y)
         es = (state - want_s).abs().max().item()
         smax = want_s.abs().max().item()
         worst = max(worst, ea)
-        require(ok, f"ssd_scan {label} init={init}: y max abs err {ea:.4g}, "
-                f"max rel err {er:.4g} beyond {tol}")
+        what = (f"ssd_scan {label} B={bsz} H={h} G={g} P={p} N={n} "
+                f"chunk={chunk} init={init} (P split {split}, {blocks} "
+                "blocks)")
+        require(ok, f"{what}: y max abs err {ea:.4g}, max rel err {er:.4g} "
+                f"beyond {tol}")
         require(es <= STATE_RTOL * smax and bool(torch.isfinite(y).all()),
-                f"ssd_scan {label} init={init}: state max abs err {es:.4g} "
-                f"(max |state| {smax:.4g}) beyond {tol}")
-        report(f"ssd_scan {label} B={bsz} H={h} P={p} N={n} chunk={chunk} "
-               f"init={init}: y max abs err {ea:.4g}, max rel err {er:.4g};"
-               f" state max abs err {es:.4g} of max {smax:.4g} ({tol})")
-    report(f"ssd_scan checks: {len(cases)} passed; max abs err {worst:.4g}")
+                f"{what}: state max abs err {es:.4g} (max |state| "
+                f"{smax:.4g}) beyond {tol}")
+        require(torch.equal(y, y2) and torch.equal(state, state2),
+                f"{what}: two launches differ")
+        report(f"{what}: y max abs err {ea:.4g}, max rel err {er:.4g}; "
+               f"state max abs err {es:.4g} of max {smax:.4g} ({tol}); "
+               "bitwise equal across two launches")
+    for q in (1, 2, 16, 17, 100, 256):
+        for n in (7, 64, 128, 130):
+            require(ssd.kernel_smem_bytes(q, n) == ssd.smem_bytes(q, n),
+                    f"ssd_scan chunk {q} N={n}: kernel sizes "
+                    f"{ssd.kernel_smem_bytes(q, n)} bytes of shared memory, "
+                    f"the wrapper {ssd.smem_bytes(q, n)}")
+    report(f"ssd_scan checks: {len(cases)} passed, each launched twice with "
+           f"bitwise equal results; max abs err {worst:.4g}; shared memory "
+           "as the wrapper counts it")
     return worst
 
 
@@ -996,9 +1109,8 @@ def ssd_bound(bsz, l, h, p, n, q, with_init, groups=None
     state) at 3.35 TB/s, against the causal products of each chunk of R
     rows (C.B^T and the score-weighted x over j <= i, C.h and the state
     update over all rows) at 989 TFLOP/s (the inputs are bf16).  B and C
-    are counted as the kernel receives them, one copy per head, or, with
-    ``groups``, once per group (what a kernel reading the model's
-    un-expanded B and C would move)."""
+    are counted once per group with ``groups`` (as the kernel reads the
+    model's B and C), else once per head."""
     bc_heads = h if groups is None else groups
     nbytes = bsz * l * (h * (2 * p * 2 + 4) + bc_heads * 2 * n * 2) + \
         h * 4 + bsz * h * p * n * 4 * (1 + int(with_init))
@@ -1010,6 +1122,31 @@ def ssd_bound(bsz, l, h, p, n, q, with_init, groups=None
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def ssd_phase_breakdown(dev, gen, report) -> dict:
+    """Where one ``ssd_scan`` launch spends its time, at the serve's
+    16-token chunk and at the 600-token prompt (B = 1, H 48, P 64, N 128,
+    the state carried in): the kernel built with per-phase clock stamps
+    (``ssd_scan.phase_clocks``) runs once after a warm-up launch, and
+    each phase's mean over the blocks is reported beside the blocks' own
+    span and the launch's span from the first block's start to the last
+    block's end."""
+    from repro_torch.kernels import ssd_scan as ssd
+    out = {}
+    for l in (16, MONO_LEN):
+        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, 1, l, 48, 64, 128, True,
+                                        groups=1)
+        ssd.phase_clocks(x, dt, a, b, c, initial_state=h0)
+        got = ssd.phase_clocks(x, dt, a, b, c, initial_state=h0)
+        out[l] = got
+        report(f"ssd_scan phases L={l} (B=1 H=48 G=1 P=64 N=128, "
+               f"{got['blocks']} blocks, SM clock {got['clock_ghz']:.3f} "
+               "GHz; mean us per block): " + ", ".join(
+                   f"{k} {v:.3f}" for k, v in got["phases_us"].items())
+               + f"; block span {got['block_us']:.3f} us, launch span "
+               f"{got['span_us']:.3f} us (first block start to last end)")
+    return out
 
 
 def ssd_timings(dev, gen, report) -> list[dict]:
@@ -1026,10 +1163,11 @@ def ssd_timings(dev, gen, report) -> list[dict]:
     # the serve's prefill chunk and the monolithic prompt, both carrying
     # the cache's state in (the model always passes it)
     for label, l in (("serve chunk", 16), ("monolithic", MONO_LEN)):
-        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, 1, l, 48, 64, 128, True)
+        x, dt, a, b, c, h0 = ssd_inputs(gen, dev, 1, l, 48, 64, 128, True,
+                                        groups=1)
         q = min(256, l)
         bound_ms, bound_by, nbytes, flops = ssd_bound(1, l, 48, 64, 128, q,
-                                                      True)
+                                                      True, groups=1)
         row = {"name": "ssd_scan", "shape": label, "b": 1, "l": l,
                "h": 48, "p": 64, "n": 128, "chunk": q,
                "ms": cold_ms(lambda: ssd.ssd_scan(
@@ -1040,14 +1178,17 @@ def ssd_timings(dev, gen, report) -> list[dict]:
                    flush),
                "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-               "bound_ms_per_group": ssd_bound(1, l, 48, 64, 128, q, True,
-                                               groups=1)[0]}
+               "bound_ms_per_head": ssd_bound(1, l, 48, 64, 128, q,
+                                              True)[0]}
+        row["split"], row["blocks"] = ssd.launch_geometry(1, 48, 64)
         rows.append(row)
-        report(f"time ssd_scan {label} B=1 L={l} H=48 P=64 N=128 chunk={q}: "
-               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-               f"no library call, bound {bound_ms:.5f} ms ({bound_by}: "
-               f"{nbytes} bytes, {flops} flops); with B and C read once "
-               f"per group {row['bound_ms_per_group']:.5f} ms")
+        report(f"time ssd_scan {label} B=1 L={l} H=48 G=1 P=64 N=128 "
+               f"chunk={q}: kernel {row['ms']:.4f} ms (P split "
+               f"{row['split']}, {row['blocks']} blocks), plain "
+               f"{row['plain_ms']:.4f} ms, no library call, bound "
+               f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} "
+               f"flops; B and C once per group); with per-head copies of B "
+               f"and C {row['bound_ms_per_head']:.5f} ms")
     return rows
 
 
@@ -1229,10 +1370,13 @@ def paged_timings(dev, gen, report) -> list[dict]:
                           "gathered into dense rows (gather not counted)",
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "flops": flops}
+        row["split"], row["blocks"] = fap.launch_geometry(
+            b, 1, h, kh, PAGE_SIZE, table.shape[1])
         rows.append(row)
         report(f"time flash_attention_paged {label} B={b} H={h} K={kh} "
                f"D={d} page {PAGE_SIZE} offsets={offs}: kernel "
-               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+               f"{row['ms']:.4f} ms (split {row['split']}, {row['blocks']} "
+               f"blocks), plain {row['plain_ms']:.4f} ms, sdpa "
                f"over the gathered rows (gather not counted) "
                f"{row['library_ms']:.4f} ms, bound {bound_ms:.5f} ms "
                f"({bound_by}: {nbytes} bytes, {flops} flops)")
@@ -1318,6 +1462,9 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--b2-reference", metavar="TREE",
+                    help="another checkout whose flash_attention build every "
+                         "B2 check must equal bit for bit")
     args = ap.parse_args()
 
     import numpy as np
@@ -1354,14 +1501,16 @@ def main() -> int:
                f"{name} {p['kernels']} kernels, at most {p['max_registers']} "
                f"registers, {p['spilling_kernels']} spilling"
                for name, p in sorted(ptxas.items())))
-    for name in ("block_matmul", "flash_attention"):
+    for name in cuda_build.SOURCES:
         require(name not in ptxas or ptxas[name]["spilling_kernels"] == 0,
                 f"{name}: register spills {ptxas[name]['spill_lines']}")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    worst = check_kernels(dev, gen, report)
+    b2_ref = reference_b2(args.b2_reference) if args.b2_reference else None
+    worst = check_kernels(dev, gen, report, b2_ref)
     worst["ssd_scan"] = check_ssd(dev, gen, report)
     worst["flash_attention_paged"] = check_paged(dev, gen, report)
+    ssd_phases = ssd_phase_breakdown(dev, gen, report)
 
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import flash_attention as fa
@@ -1441,6 +1590,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "whole_model": model_check, "times": times,
+        "ssd_phases": ssd_phases,
         "kernels": kernels, "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,10 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, *, device):
     """A numpy parameter (or KV-cache) tree as torch tensors on
-    ``device``, dtypes kept."""
+    ``device``, dtypes kept.  ``device`` has no default: the port runs on
+    the card unless its caller asks for the CPU."""
     return tree_map_with_path(lambda _, a: _leaf_to_torch(a, device), tree)
 
 

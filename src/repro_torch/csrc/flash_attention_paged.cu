@@ -15,62 +15,46 @@
 // What bounds it on an H100: decode (S = 1) reads each row's visible keys
 // once, 4*D bytes of K and V per key, for 4*D FLOPs per key and query head;
 // even with all H/KH query heads of a group sharing one read that is under
-// 8 FLOPs per byte, so it is bound by the bytes of the visible pages.
+// 8 FLOPs per byte, so the bytes of the visible pages bound it, and at the
+// serve's sizes (a few hundred keys per row, under 1 MB in all) the launch
+// and the latency of one tile's loads are most of the time.
 //
-// What the design does about it:
-// - One block per (KV head, batch row).  The block holds every query head
-//   of the KV head's group (rows = S * H/KH; gemma-2b: 8 query heads on
-//   one KV head), so each page's K and V cross HBM once, not once per
-//   query head as in the TPU grid and in the dense kernel.
-// - A page of 8 or 16 tokens is smaller than a useful tile, so the block
-//   gathers 64 consecutive logical keys (several pages, each page's
-//   physical index read from the table) into one shared-memory KV tile
-//   with 16-byte loads; a key row of one page is D contiguous bf16.
-// - The loop covers only the keys some query can see, [lo, hi) with
-//   hi = min(kv_valid, last query position + 1) and lo the window's first
-//   key, so a decode row reads ceil(hi / ps) pages' worth of keys, never
-//   the whole slot.  Keys outside [lo, hi) are neither loaded nor
-//   multiplied: the trash page and unmapped entries are never read, and
-//   skipping a fully masked key is exact (it leaves m, l and the
-//   accumulator unchanged).
-// - Numerics are the TPU kernel's: q upcast to fp32 and then scaled by
-//   D**-0.5, optional tanh softcap, masked scores set to -2.3819763e38,
-//   masked probabilities zeroed, fp32 running max / denominator /
-//   accumulator, denominator clamped at 1e-30 so a row with no visible key
-//   writes 0.  Each softmax row is reduced by one warp with shuffles.
-// At gemma-2b's widths (8 rows, D = 256) a block needs 84,320 bytes of
-// dynamic shared memory.  Not yet done: tensor-core products, cp.async /
-// TMA double buffering of the KV tile, and split-KV across blocks (the
-// grid is only B * KH blocks: 4 at the serve's decode shape).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it: the dense kernel's block
+// (`flash::attend_block` in flash_block.cuh) over keys gathered through
+// the table, so a 64-key tile is ceil(64 / ps) page runs of D contiguous
+// bf16 per key, copied by 16-byte cp.async:
+// - one block per (KV head, batch row, tile of up to 64 flattened S x G
+//   query rows), every query head of the group in it, so each page's K and
+//   V cross HBM once;
+// - the row's page-table entries that address the block's keys are staged
+//   in shared memory once, before the first tile: a key's address is one
+//   shared-memory read, not a global load the tile's copy waits on;
+// - double-buffered tile copies, tensor-core Q.K^T and P.V (P as bf16 hi +
+//   lo), a warp per softmax row;
+// - split-KV across a cluster of up to 8 blocks (`launch_geometry` in
+//   kernels/flash_attention_paged.py, from the static shapes only: the
+//   visible keys are on the device), combined by rank 0 in rank order;
+//   4 rows x 1 KV head at the serve's decode get 32 blocks, not 4.
+// Only keys in [lo, hi) are copied; the rest of a tile (a tile straddling
+// hi or lo, the trash page, unmapped entries) is zero-filled and never
+// read, so garbage of any value cannot reach the output through 0 * NaN.
+// D in {32, 64, 128, 256}; the key tile is 64.  Shared memory is the dense
+// kernel's layout plus the staged entries (n_slot int32, 16-byte aligned).
+#include "flash_block.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // logical keys per shared-memory KV tile
-constexpr float kNegInf = -2.3819763e38f;
+using flash::kThreads;
+using flash::kMaxSplit;
+using flash::Layout;
 
-__device__ __forceinline__ bool visible(int kpos, int qpos, int kv_valid,
-                                        int window) {
-  return kpos <= qpos && kpos < kv_valid &&
-         (window <= 0 || kpos > qpos - window);
-}
+constexpr int kTile = 64;  // keys per shared-memory KV tile
+constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+int table_bytes(int n_slot) { return (n_slot * 4 + 15) / 16 * 16; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int D, int RG>
+__global__ void __launch_bounds__(kThreads, 1)
     paged_flash_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_pool,
                        const __nv_bfloat16* __restrict__ v_pool,
@@ -78,132 +62,54 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ page_table,
                        const int* __restrict__ offset,
                        const int* __restrict__ kv_valid, int S, int H, int KH,
-                       int D, int ps, int n_slot, int window, float softcap,
-                       float scale) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / KH;
-  const int rows = S * G;  // row r: query r / G, head kvh * G + r % G
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int sk = D + 2;  // padded K-row stride (bf16): conflict-free reads
-  const int nf = (2 * rows * D + rows * kTile + 3 * rows + 3) & ~3;
+                       int ps, int n_slot, int bq, int window, float softcap,
+                       float scale, int split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  flash::PagedKeys keys{
+      page_table + (size_t)blockIdx.z * n_slot,
+      reinterpret_cast<int*>(smem + Layout<D, RG, kTile>::BYTES), ps, n_slot,
+      0};
+  flash::attend_block<D, RG, kTile>(smem, q, k_pool, v_pool, out, offset,
+                                    kv_valid, S, H, n_slot * ps, KH, bq,
+                                    window, softcap, scale, split, keys);
+}
 
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                  // rows x D, scaled fp32 queries
-  float* sAcc = sQ + rows * D;       // rows x D, fp32 output accumulator
-  float* sP = sAcc + rows * D;       // rows x kTile, scores then probs
-  float* sM = sP + rows * kTile;     // rows running max
-  float* sL = sM + rows;             // rows running denominator
-  float* sAlpha = sL + rows;         // rows rescale factor of this tile
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + nf);
-  __nv_bfloat16* sK = sV + kTile * D;  // kTile x sk
-
-  const int off = offset[b];
-  const int kvl = min(kv_valid[b], n_slot * ps);
-  const int* table = page_table + (size_t)b * n_slot;
-
-  for (int idx = tid; idx < rows * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int h = kvh * G + r % G;
-    sQ[idx] = __bfloat162float(q[((size_t)(b * S + r / G) * H + h) * D + d]) *
-              scale;
-    sAcc[idx] = 0.0f;
+template <int D, int RG>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const void* table, const void* offset, const void* kv_valid,
+                   int B, int S, int H, int KH, int ps, int n_slot, int bq,
+                   int window, float softcap, float scale, int split,
+                   cudaStream_t stream) {
+  auto kernel = paged_flash_kernel<D, RG>;
+  const int smem = Layout<D, RG, kTile>::BYTES + table_bytes(n_slot);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
   }
-  for (int r = tid; r < rows; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.0f;
-  }
-
-  // keys any query of this row can see: [lo, hi)
-  const int hi = min(kvl, off + S);
-  const int lo = window > 0 ? max(0, off - window + 1) : 0;
-  const int chunks = D / 8;  // 16-byte chunks per key row
-  const int half_d = D / 2;
-  for (int t0 = (lo / kTile) * kTile; t0 < hi; t0 += kTile) {
-    const int nj = min(kTile, hi - t0);  // keys of this tile below hi
-    __syncthreads();  // previous tile's readers are done with sK/sV/sP
-    for (int idx = tid; idx < kTile * chunks; idx += kThreads) {
-      const int j = idx / chunks, c = (idx % chunks) * 8;
-      const int kpos = t0 + j;
-      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
-      if (kpos >= lo && kpos < hi) {
-        const size_t page = (size_t)table[kpos / ps];
-        const size_t src = ((page * ps + kpos % ps) * KH + kvh) * D + c;
-        kw = *reinterpret_cast<const uint4*>(k_pool + src);
-        vw = *reinterpret_cast<const uint4*>(v_pool + src);
-      }
-      *reinterpret_cast<uint4*>(sV + j * D + c) = vw;
-      uint32_t* kd = reinterpret_cast<uint32_t*>(sK + j * sk + c);
-      kd[0] = kw.x;
-      kd[1] = kw.y;
-      kd[2] = kw.z;
-      kd[3] = kw.w;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < rows * kTile; idx += kThreads) {
-      const int r = idx / kTile, j = idx % kTile;
-      float s = kNegInf;
-      if (j < nj && visible(t0 + j, off + r / G, kvl, window)) {
-        const float* qr = sQ + r * D;
-        const __nv_bfloat162* kj =
-            reinterpret_cast<const __nv_bfloat162*>(sK + j * sk);
-        s = 0.0f;
-        for (int p = 0; p < half_d; ++p) {
-          const float2 kf = __bfloat1622float2(kj[p]);
-          s = fmaf(qr[2 * p], kf.x, s);
-          s = fmaf(qr[2 * p + 1], kf.y, s);
-        }
-        if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
-      }
-      sP[idx] = s;
-    }
-    __syncthreads();
-    for (int r = warp; r < rows; r += kWarps) {
-      float* pr = sP + r * kTile;
-      const int qpos = off + r / G;
-      const float m_prev = sM[r];
-      float m_cur = m_prev;
-      for (int j = lane; j < kTile; j += 32) m_cur = fmaxf(m_cur, pr[j]);
-      m_cur = warp_max(m_cur);
-      float sum = 0.0f;
-      for (int j = lane; j < kTile; j += 32) {
-        const float p = (j < nj && visible(t0 + j, qpos, kvl, window))
-                            ? expf(pr[j] - m_cur)
-                            : 0.0f;
-        pr[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_cur;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < rows * half_d; idx += kThreads) {
-      const int r = idx / half_d, dp = (idx % half_d) * 2;
-      const float* pr = sP + r * kTile;
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int j = 0; j < nj; ++j) {
-        const float2 vf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(sV + j * D + dp));
-        a0 = fmaf(pr[j], vf.x, a0);
-        a1 = fmaf(pr[j], vf.y, a1);
-      }
-      float* acc = sAcc + r * D + dp;
-      acc[0] = acc[0] * sAlpha[r] + a0;
-      acc[1] = acc[1] * sAlpha[r] + a1;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < rows * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int h = kvh * G + r % G;
-    out[((size_t)(b * S + r / G) * H + h) * D + d] =
-        __float2bfloat16(sAcc[idx] / fmaxf(sL[r], 1e-30f));
-  }
+  const int q_tiles = (S * (H / KH) + bq - 1) / bq;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(q_tiles * split, KH, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(table), static_cast<const int*>(offset),
+      static_cast<const int*>(kv_valid), S, H, KH, ps, n_slot, bq, window,
+      softcap, scale, split);
 }
 
 }  // namespace
@@ -215,31 +121,56 @@ const char* cuda_error_name(int err) {
 }
 
 // page_table is (B, n_slot) int32, offset and kv_valid are (B,) int32, all
-// on the device.  window <= 0 means no window, softcap <= 0 no softcap.
-// smem is the dynamic shared memory the wrapper computed for (S*H/KH, D).
+// on the device.  bq is the number of flattened (query, head-of-group) rows
+// per block, at most 64; D in {32, 64, 128, 256}; split (the cluster size)
+// in 1..8.  window <= 0 means no window, softcap <= 0 no softcap.  Returns
+// cudaErrorInvalidValue for anything else, or for a block whose shared
+// memory exceeds the card's.
 int flash_attention_paged_bf16(const void* q, const void* k_pool,
                                const void* v_pool, void* out,
                                const void* page_table, const void* offset,
                                const void* kv_valid, int B, int S, int H,
-                               int KH, int D, int ps, int n_slot, int window,
-                               float softcap, float scale, int smem,
-                               void* stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(KH, B);
-  paged_flash_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<__nv_bfloat16*>(out), static_cast<const int*>(page_table),
-      static_cast<const int*>(offset), static_cast<const int*>(kv_valid), S,
-      H, KH, D, ps, n_slot, window, softcap, scale);
-  return (int)cudaGetLastError();
+                               int KH, int D, int ps, int n_slot, int bq,
+                               int window, float softcap, float scale,
+                               int split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split < 1 || split > kMaxSplit || bq < 1 || bq > 64 || ps < 1 ||
+      n_slot < 1)
+    return (int)cudaErrorInvalidValue;
+  const int rg = bq <= 16 ? 1 : (bq <= 32 ? 2 : 4);
+#define REPRO_CASE(D_, RG_)                                                  \
+  if (D == D_ && rg == RG_)                                                  \
+    return (int)launch<D_, RG_>(q, k_pool, v_pool, out, page_table, offset, \
+                                kv_valid, B, S, H, KH, ps, n_slot, bq,       \
+                                window, softcap, scale, split, s);
+#define REPRO_RG(D_) REPRO_CASE(D_, 1) REPRO_CASE(D_, 2) REPRO_CASE(D_, 4)
+  REPRO_RG(32)
+  REPRO_RG(64)
+  REPRO_RG(128)
+  REPRO_RG(256)
+#undef REPRO_RG
+#undef REPRO_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the block flash_attention_paged_bf16 launches
+// for bq flattened rows at head_dim D over n_slot table entries a row
+// (`smem_bytes` in kernels/flash_attention_paged.py), or -1 for a block it
+// is not built for.
+int flash_attention_paged_smem_bytes(int bq, int D, int n_slot) {
+  if (bq < 1 || bq > 64 || n_slot < 1) return -1;
+  const int rg = bq <= 16 ? 1 : (bq <= 32 ? 2 : 4);
+#define REPRO_CASE(D_, RG_) \
+  if (D == D_ && rg == RG_) \
+    return Layout<D_, RG_, kTile>::BYTES + table_bytes(n_slot);
+#define REPRO_RG(D_) REPRO_CASE(D_, 1) REPRO_CASE(D_, 2) REPRO_CASE(D_, 4)
+  REPRO_RG(32)
+  REPRO_RG(64)
+  REPRO_RG(128)
+  REPRO_RG(256)
+#undef REPRO_RG
+#undef REPRO_CASE
+  return -1;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // ssd_scan: the Mamba-2 chunked SSD scan,
-// x (B,L,H,P) bf16, dt (B,L,H) fp32, a (H,) fp32, b/c (B,L,H,N) bf16,
-// h0 (B,H,P,N) fp32 or null -> y (B,L,H,P) bf16, final state (B,H,P,N) fp32.
+// x (B,L,H,P) bf16, dt (B,L,H) fp32, a (H,) fp32, b/c (B,L,G,N) bf16 with G
+// dividing H (head h reads group h / (H/G)), h0 (B,H,P,N) fp32 or null
+// -> y (B,L,H,P) bf16, final state (B,H,P,N) fp32.
 //
 // Replaces the TPU kernel `_ssd_kernel` / `ssd_scan`
 // (src/repro/kernels/ssd_scan.py:23,68).  The TPU version walks a
@@ -12,40 +13,126 @@
 //
 // What bounds it on an H100: on the serving path (prefill chunks of at
 // most 16 tokens, one chunk per call) it reads and writes the 48 x 64 x 128
-// fp32 state of every head, ~3.1 MB at B = 1, so it is bound by bytes; a
-// monolithic prefill of hundreds of tokens is still bound by the bytes of
-// x, y, B and C (~22 MB at L = 600) against ~2 GFLOP of causal products.
+// fp32 state of every head, ~3.1 MB at B = 1, so it is bound by bytes and,
+// at that size, by the latency of one launch's loads; a monolithic prefill
+// of hundreds of tokens runs ~3 GFLOP of causal products (C.B^T over every
+// head) against ~12 MB of x, y, B and C.
 //
-// What the design does about it: Hopper blocks run in no order, so one
-// block per (head, batch row) loops over the chunks itself and keeps the
-// state in shared memory across them (a (P, N + 1) fp32 array, padded so
-// the threads of a warp read distinct banks).  Each chunk's B, C (bf16,
-// rows padded to an odd word stride) and x (bf16) are staged in shared
-// memory once; at Q = 256 the (Q, Q) score matrix would not fit beside
-// them, so the intra-chunk product runs by 64 x 64 sub-tiles: for each
-// tile of 64 query rows, key tiles up to the diagonal build a score tile
-// in shared memory (each thread a strided 4 x 4 micro-tile in registers)
-// and fold it into the query rows' 4 x 4 register accumulators of y.  The
-// decay exp(seg_i - seg_j) is computed only for j <= i: above the
-// diagonal it can overflow, and the score is selected to 0 there, not
-// multiplied by a mask.  The cumsum of dt*a is a warp-level prefix sum in
-// fp32 (another order of summation than jnp.cumsum).  The ragged last
-// chunk is masked, not padded: its real rows of y and the final state
-// equal the TPU wrapper's dt = 0 padding.  At Q = 256, P = 64, N = 128 a
-// block needs 218,624 bytes of dynamic shared memory.  Not yet done:
-// tensor-core products, reading B and C once per group instead of per
-// head, splitting P across blocks for more than B x H blocks.
+// What the design does about it:
+// - P is split across blocks: one block per (16 columns of P, head, batch
+//   row), 4 x 48 = 192 blocks at B = 1 instead of 48.  y's columns and the
+//   state's rows are independent in P, so the split is exact; each block
+//   recomputes the chunk's cumsum and C.B^T (on tensor cores, cheap).  The
+//   blocks of one head are neighbours, so B and C come from L2 after the
+//   first.
+// - B and C are read once per group (b/c (B, L, G, N)); the model no longer
+//   expands them to heads.
+// - All four products run on mma.sync m16n8k16 with fp32 accumulators:
+//   C.B^T (bf16 operands, exact); the decayed scores times x, C.h and the
+//   state update x^T (w o B), whose fp32 operand (the scores, h, x*w) is
+//   split into bf16 hi + lo and both products summed, so it keeps ~2^-17
+//   relative precision.  The scores never leave registers: an m16n8 sum
+//   fragment is the m16k16 operand fragment of the next product.  The
+//   decay exp(seg_i - seg_j) is computed only for j <= i and the score is
+//   selected to 0 above the diagonal (where the exponent can overflow and
+//   inf * 0 would be NaN), never multiplied by a mask.
+// - A chunk's B, C and x are staged by 16-byte cp.async copies into rows
+//   padded by 16 bytes (ldmatrix without bank conflicts); the state slice
+//   is loaded and stored with 16-byte copies and stays in shared memory
+//   (fp32, plus its bf16 hi / lo split for C.h) across the chunks.
+// - Row tiles of the intra-chunk product go to the 8 warps in a snake
+//   order (warp w takes tiles w and 15 - w at Q = 256), which evens out
+//   the causal triangle.
+// The cumsum of dt*a is a warp-level prefix sum in fp32 (another order of
+// summation than jnp.cumsum).  The ragged last chunk is masked, not
+// padded: rows past L of B, C and x land as zeros and their dt as 0, so
+// the real rows of y and the final state equal the TPU wrapper's dt = 0
+// padding.  Shared memory depends on (Q, N): 205,056 bytes at Q = 256,
+// N = 128 (`ssd_scan_smem_bytes`).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90_tiles.cuh"
+#include "ssd_phases.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kTile = 64;       // query rows and key rows of one sub-tile
-constexpr int kMaxP = 64;       // head_dim held in 4 x 16 register columns
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPW = 16;  // columns of P a block takes
+constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float bf(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// what the host found aligned for 16-byte copies
+constexpr int kVecBC = 1, kVecX = 2, kVecH = 4;
+
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Shared-memory layout in bytes for chunk length Q and state dim N (rows
+// padded: bf16 by 8 elements, fp32 by 4; every region 16-byte aligned).
+struct Layout {
+  int QP, NP, SB, SQW, SH;  // padded sizes and row strides (elements)
+  int B, C, X, XWH, XWL, HH, HL, H, Y, SEG, DT, W, BYTES;
+  __host__ __device__ Layout(int Q, int N) {
+    QP = round_up(Q, 16);
+    NP = round_up(N, 32);
+    SB = NP + 8;   // bf16 rows of B, C, h hi / lo
+    SQW = QP + 8;  // bf16 rows of (x*w)^T hi / lo
+    SH = NP + 4;   // fp32 state rows
+    B = 0;
+    C = B + QP * SB * 2;
+    X = C + QP * SB * 2;  // QP x 24 bf16
+    XWH = X + QP * 24 * 2;
+    XWL = XWH + kPW * SQW * 2;
+    HH = XWL + kPW * SQW * 2;
+    HL = HH + kPW * SB * 2;
+    H = HL + kPW * SB * 2;
+    Y = H + kPW * SH * 4;  // QP x 16 fp32: exp(seg_i) C_i.h
+    SEG = Y + QP * kPW * 4;
+    DT = SEG + QP * 4;
+    W = DT + QP * 4;
+    BYTES = W + QP * 4;
+  }
+};
+constexpr int kSX = 24;  // bf16 row stride of the x slice
+
+// two bf16 as one operand register, `first` in the low half
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 first,
+                                         __nv_bfloat16 second) {
+  const __nv_bfloat162 v = __halves2bfloat162(first, second);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// v = hi + lo in bf16, lo the rounding error of hi
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi,
+                                           __nv_bfloat16& lo) {
+  hi = __float2bfloat16(v);
+  lo = __float2bfloat16(v - __bfloat162float(hi));
+}
+
+// acc[nb] (16 x 8, nb = 0, 1) += A . R^T over k in [0, K): A is 16 rows of
+// stride sa from `a`, R the 16 rows of stride sr from `r` (rows nb*8 ..
+// nb*8 + 7 give the columns of acc[nb]); K a multiple of 32.
+__device__ __forceinline__ void rows_dot(const __nv_bfloat16* a, int sa,
+                                         const __nv_bfloat16* r, int sr,
+                                         int K, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* pa = a + (lane & 15) * sa + (lane >> 4) * 8;
+  const __nv_bfloat16* pr0 = r + (lane & 7) * sr + (lane >> 3) * 8;
+  const __nv_bfloat16* pr1 = pr0 + 8 * sr;
+  for (int kk = 0; kk < K; kk += 32) {
+    uint32_t a0[4], a1[4], b0[4], b1[4];
+    sm90::ldmatrix_x4(a0, pa + kk);
+    sm90::ldmatrix_x4(a1, pa + kk + 16);
+    sm90::ldmatrix_x4(b0, pr0 + kk);
+    sm90::ldmatrix_x4(b1, pr1 + kk);
+    sm90::mma_bf16_16816(acc[0], a0, b0[0], b0[1]);
+    sm90::mma_bf16_16816(acc[0], a1, b0[2], b0[3]);
+    sm90::mma_bf16_16816(acc[1], a0, b1[0], b1[1]);
+    sm90::mma_bf16_16816(acc[1], a1, b1[2], b1[3]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -55,47 +142,110 @@ __global__ void __launch_bounds__(kThreads)
                     const __nv_bfloat16* __restrict__ cmat,
                     const float* __restrict__ h0,
                     __nv_bfloat16* __restrict__ y,
-                    float* __restrict__ state_out, int L, int H, int P,
-                    int N, int Q) {
-  const int h = blockIdx.x;
+                    float* __restrict__ state_out, int L, int H, int G,
+                    int P, int N, int Q, int psplit,
+                    int vec SSD_PHASE_PARAM) {
+  const int h = blockIdx.x / psplit;
+  const int p0 = (blockIdx.x % psplit) * kPW;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int sbc = (N | 1) + 1;   // B/C row stride (bf16): even, >= N + 1
-  const int sh = N + 1;          // state row stride (fp32)
-  const int ss = kTile + 1;      // score row stride (fp32)
+  const int grp = h / (H / G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const Layout lay(Q, N);
+  const int NP = lay.NP, SB = lay.SB, SQW = lay.SQW, SH = lay.SH;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sH = reinterpret_cast<float*>(smem_raw);     // P x sh state
-  float* sSeg = sH + P * sh;                          // Q cumsum of dt*a
-  float* sDt = sSeg + Q;                              // Q dt
-  float* sW = sDt + Q;                                // Q exp(total-seg)*dt
-  float* sS = sW + Q;                                 // kTile x ss scores
-  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(sS + kTile * ss);
-  __nv_bfloat16* sC = sB + Q * sbc;                   // Q x sbc
-  __nv_bfloat16* sX = sC + Q * sbc;                   // Q x P
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem + lay.B);
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem + lay.C);
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem + lay.X);
+  __nv_bfloat16* sXWh = reinterpret_cast<__nv_bfloat16*>(smem + lay.XWH);
+  __nv_bfloat16* sXWl = reinterpret_cast<__nv_bfloat16*>(smem + lay.XWL);
+  __nv_bfloat16* sHh = reinterpret_cast<__nv_bfloat16*>(smem + lay.HH);
+  __nv_bfloat16* sHl = reinterpret_cast<__nv_bfloat16*>(smem + lay.HL);
+  float* sH = reinterpret_cast<float*>(smem + lay.H);
+  float* sY = reinterpret_cast<float*>(smem + lay.Y);
+  float* sSeg = reinterpret_cast<float*>(smem + lay.SEG);
+  float* sDt = reinterpret_cast<float*>(smem + lay.DT);
+  float* sW = reinterpret_cast<float*>(smem + lay.W);
 
+  SSD_PHASE_BEGIN();
   const float av = a[h];
-  const size_t hoff = ((size_t)b * H + h) * P * N;
-  for (int idx = tid; idx < P * N; idx += kThreads)
-    sH[(idx / N) * sh + idx % N] = h0 != nullptr ? h0[hoff + idx] : 0.0f;
+  const int prow = min(kPW, P - p0);  // real rows of the state slice
+  const size_t hoff = (((size_t)b * H + h) * P + p0) * N;
+
+  // the state slice (prow x N of fp32, contiguous) into sH, zero-padded
+  if (h0 != nullptr && (vec & kVecH)) {
+    for (int idx = tid; idx < kPW * (NP / 4); idx += kThreads) {
+      const int p = idx / (NP / 4), n = (idx % (NP / 4)) * 4;
+      const bool in = p < prow && n < N;
+      sm90::cp_async16(sH + p * SH + n, in ? h0 + hoff + (size_t)p * N + n : h0,
+                       in ? 16 : 0);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+  } else {
+    for (int idx = tid; idx < kPW * NP; idx += kThreads) {
+      const int p = idx / NP, n = idx % NP;
+      sH[p * SH + n] = (h0 != nullptr && p < prow && n < N)
+                           ? h0[hoff + (size_t)p * N + n]
+                           : 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kPW * NP; idx += kThreads) {
+    const int p = idx / NP, n = idx % NP;
+    split_bf16(sH[p * SH + n], sHh[p * SB + n], sHl[p * SB + n]);
+  }
+  SSD_PHASE(kPhaseStateLoad);
 
   for (int c0 = 0; c0 < L; c0 += Q) {
     const int rows = min(Q, L - c0);
-    __syncthreads();   // the previous chunk's readers are done
-    for (int idx = tid; idx < rows * N; idx += kThreads) {
-      const int j = idx / N, n = idx % N;
-      const size_t src = (((size_t)b * L + c0 + j) * H + h) * N + n;
-      sB[j * sbc + n] = bmat[src];
-      sC[j * sbc + n] = cmat[src];
+    const int RP = round_up(rows, 16);  // rows the products cover
+    __syncthreads();  // the previous chunk's readers are done
+
+    // B and C rows of the group (zero past `rows` and past N)
+    if (vec & kVecBC) {
+      for (int idx = tid; idx < RP * (NP / 8); idx += kThreads) {
+        const int j = idx / (NP / 8), n = (idx % (NP / 8)) * 8;
+        const bool in = j < rows && n < N;
+        const size_t src = in ? (((size_t)b * L + c0 + j) * G + grp) * N + n
+                              : 0;
+        sm90::cp_async16(sB + j * SB + n, bmat + src, in ? 16 : 0);
+        sm90::cp_async16(sC + j * SB + n, cmat + src, in ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < RP * NP; idx += kThreads) {
+        const int j = idx / NP, n = idx % NP;
+        const bool in = j < rows && n < N;
+        const size_t src = (((size_t)b * L + c0 + j) * G + grp) * N + n;
+        sB[j * SB + n] = in ? bmat[src] : __float2bfloat16(0.0f);
+        sC[j * SB + n] = in ? cmat[src] : __float2bfloat16(0.0f);
+      }
     }
-    for (int idx = tid; idx < rows * P; idx += kThreads) {
-      const int j = idx / P, p = idx % P;
-      sX[j * P + p] = x[(((size_t)b * L + c0 + j) * H + h) * P + p];
+    // the x slice: rows x 16 columns of P
+    if (vec & kVecX) {
+      for (int idx = tid; idx < RP * 2; idx += kThreads) {
+        const int j = idx / 2, p = (idx % 2) * 8;
+        const bool in = j < rows && p < prow;
+        const size_t src =
+            in ? (((size_t)b * L + c0 + j) * H + h) * P + p0 + p : 0;
+        sm90::cp_async16(sX + j * kSX + p, x + src, in ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < RP * kPW; idx += kThreads) {
+        const int j = idx / kPW, p = idx % kPW;
+        const bool in = j < rows && p < prow;
+        sX[j * kSX + p] =
+            in ? x[(((size_t)b * L + c0 + j) * H + h) * P + p0 + p]
+               : __float2bfloat16(0.0f);
+      }
     }
-    for (int j = tid; j < rows; j += kThreads)
-      sDt[j] = dt[((size_t)b * L + c0 + j) * H + h];
+    sm90::cp_async_commit();
+    for (int j = tid; j < RP; j += kThreads)
+      sDt[j] = j < rows ? dt[((size_t)b * L + c0 + j) * H + h] : 0.0f;
+    sm90::cp_async_wait<0>();
     __syncthreads();
+    SSD_PHASE(kPhaseStaging);
 
     // inclusive cumsum of dt*a: each lane of warp 0 sums a contiguous
     // segment, then adds the exclusive prefix of the lanes' segment sums
@@ -114,121 +264,144 @@ __global__ void __launch_bounds__(kThreads)
       }
       const float excl = incl - run;
       for (int j = lo; j < hi; ++j) sSeg[j] += excl;
+      for (int j = rows + tid; j < RP; j += 32) sSeg[j] = 0.0f;
     }
     __syncthreads();
     const float total = sSeg[rows - 1];
-    for (int j = tid; j < rows; j += kThreads)
-      sW[j] = expf(total - sSeg[j]) * sDt[j];
+    for (int j = tid; j < RP; j += kThreads)
+      sW[j] = j < rows ? expf(total - sSeg[j]) * sDt[j] : 0.0f;
+    __syncthreads();
+    // (x * w)^T split into bf16 hi + lo: the state update's A operand
+    for (int idx = tid; idx < kPW * RP; idx += kThreads) {
+      const int p = idx / RP, j = idx % RP;
+      split_bf16(__bfloat162float(sX[j * kSX + p]) * sW[j],
+                 sXWh[p * SQW + j], sXWl[p * SQW + j]);
+    }
+    SSD_PHASE(kPhaseCumsum);
 
-    // y of this chunk, by tiles of kTile query rows; thread (tx, ty) owns
-    // rows i0 + ty + 16r and columns p = tx + 16c
-    for (int i0 = 0; i0 < rows; i0 += kTile) {
-      float acc[4][4];
+    // row tiles of 16 go to the warps in a snake order
+    const int nt = RP / 16;
+    // inter-chunk term: sY = exp(seg_i) * C_i . h_in (h as hi + lo)
+    for (int r = 0; r * kWarps < nt; ++r) {
+      const int ti = r * kWarps + ((r & 1) ? kWarps - 1 - warp : warp);
+      if (ti >= nt) continue;
+      float d[2][4] = {};
+      rows_dot(sC + ti * 16 * SB, SB, sHh, SB, NP, d);
+      rows_dot(sC + ti * 16 * SB, SB, sHl, SB, NP, d);
+      const float es_a = expf(sSeg[ti * 16 + g]);
+      const float es_b = expf(sSeg[ti * 16 + g + 8]);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-      int ir[4], pc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) ir[r] = min(i0 + ty + 16 * r, rows - 1);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) pc[c] = min(tx + 16 * c, P - 1);
-
-      const int jend = min(rows, i0 + kTile);   // keys up to the diagonal
-      for (int j0 = 0; j0 < jend; j0 += kTile) {
-        int jc[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) jc[c] = min(j0 + tx + 16 * c, rows - 1);
-        float s[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) cv[r] = bf(sC[ir[r] * sbc + n]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = bf(sB[jc[c] * sbc + n]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s[r][c] = fmaf(cv[r], bv[c], s[r][c]);
-        }
-        __syncthreads();   // the previous score tile's readers are done
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + ty + 16 * r;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int j = j0 + tx + 16 * c;
-            float v = 0.0f;
-            if (j <= i && i < rows)
-              v = s[r][c] * expf(sSeg[i] - sSeg[j]) * sDt[j];
-            sS[(ty + 16 * r) * ss + tx + 16 * c] = v;
-          }
-        }
-        __syncthreads();
-        const int jn = min(kTile, jend - j0);
-        for (int jj = 0; jj < jn; ++jj) {
-          float xv[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) xv[c] = bf(sX[(j0 + jj) * P + pc[c]]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float sv = sS[(ty + 16 * r) * ss + jj];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(sv, xv[c], acc[r][c]);
-          }
-        }
-      }
-
-      // inter-chunk term: exp(seg_i) * C_i . h_in
-      float d[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) d[r][c] = 0.0f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = bf(sC[ir[r] * sbc + n]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) hv[c] = sH[pc[c] * sh + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) d[r][c] = fmaf(cv[r], hv[c], d[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty + 16 * r;
-        if (i >= rows) continue;
-        const float es = expf(sSeg[i]);
-        __nv_bfloat16* yrow = y + (((size_t)b * L + c0 + i) * H + h) * P;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int p = tx + 16 * c;
-          if (p < P) yrow[p] = __float2bfloat16(acc[r][c] + es * d[r][c]);
-        }
+      for (int nb = 0; nb < 2; ++nb) {
+        float* ya = sY + (ti * 16 + g) * kPW + nb * 8 + 2 * c;
+        *reinterpret_cast<float2*>(ya) =
+            make_float2(es_a * d[nb][0], es_a * d[nb][1]);
+        *reinterpret_cast<float2*>(ya + 8 * kPW) =
+            make_float2(es_b * d[nb][2], es_b * d[nb][3]);
       }
     }
+    SSD_PHASE(kPhaseInter);
 
-    // state update; each thread owns whole (p, n) entries
-    __syncthreads();   // every reader of the incoming state is done
+    // intra-chunk term, 16 query rows x 16 key rows at a time up to the
+    // diagonal: S = C_i . B_j^T, then M = S exp(seg_i - seg_j) dt_j on
+    // j <= i (0 elsewhere), then y += M . x_j with M as bf16 hi + lo
+    for (int r = 0; r * kWarps < nt; ++r) {
+      const int ti = r * kWarps + ((r & 1) ? kWarps - 1 - warp : warp);
+      if (ti >= nt) continue;
+      const int ia = ti * 16 + g, ib = ia + 8;
+      const float seg_a = sSeg[ia], seg_b = sSeg[ib];
+      float acc[2][4] = {};
+      for (int tj = 0; tj <= ti; ++tj) {
+        float s[2][4] = {};
+        rows_dot(sC + ti * 16 * SB, SB, sB + tj * 16 * SB, SB, NP, s);
+        uint32_t mh[4], ml[4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? ia : ib;
+            const int j = tj * 16 + nb * 8 + 2 * c + (e & 1);
+            v[e] = (j <= i && i < rows)
+                       ? s[nb][e] * expf((e < 2 ? seg_a : seg_b) - sSeg[j]) *
+                             sDt[j]
+                       : 0.0f;
+          }
+          // the m16n8 sum fragment is half of the m16k16 operand fragment
+          __nv_bfloat16 hi[4], lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_bf16(v[e], hi[e], lo[e]);
+          // operand registers: a0 = row g / keys 0-7, a1 = row g+8 /
+          // keys 0-7, a2 = row g / keys 8-15, a3 = row g+8 / keys 8-15
+          mh[2 * nb] = pack2(hi[0], hi[1]);
+          mh[2 * nb + 1] = pack2(hi[2], hi[3]);
+          ml[2 * nb] = pack2(lo[0], lo[1]);
+          ml[2 * nb + 1] = pack2(lo[2], lo[3]);
+        }
+        uint32_t bx[4];
+        sm90::ldmatrix_x4_trans(
+            bx, sX + (tj * 16 + (lane & 15)) * kSX + (lane >> 4) * 8);
+        sm90::mma_bf16_16816(acc[0], mh, bx[0], bx[1]);
+        sm90::mma_bf16_16816(acc[0], ml, bx[0], bx[1]);
+        sm90::mma_bf16_16816(acc[1], mh, bx[2], bx[3]);
+        sm90::mma_bf16_16816(acc[1], ml, bx[2], bx[3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib;
+          const int col = nb * 8 + 2 * c + (e & 1);
+          if (i < rows && col < prow)
+            y[(((size_t)b * L + c0 + i) * H + h) * P + p0 + col] =
+                __float2bfloat16(acc[nb][e] + sY[i * kPW + col]);
+        }
+    }
+    SSD_PHASE(kPhaseIntra);
+
+    // state update, 16 state columns a warp at a time:
+    // h' = exp(total) h + (x*w)^T . B with (x*w) as bf16 hi + lo
+    __syncthreads();  // every reader of h_in's hi / lo is done
     const float decay = expf(total);
-    for (int idx = tid; idx < P * N; idx += kThreads) {
-      const int p = idx / N, n = idx % N;
-      float acc = 0.0f;
-      for (int j = 0; j < rows; ++j)
-        acc = fmaf(bf(sX[j * P + p]), bf(sB[j * sbc + n]) * sW[j], acc);
-      float* hp = sH + p * sh + n;
-      *hp = decay * *hp + acc;
+    for (int pr = warp; pr < NP / 16; pr += kWarps) {
+      float acc[2][4] = {};
+      for (int ks = 0; ks < RP; ks += 16) {
+        uint32_t wh[4], wl[4], bb[4];
+        const int ao = (lane & 15) * SQW + ks + (lane >> 4) * 8;
+        sm90::ldmatrix_x4(wh, sXWh + ao);
+        sm90::ldmatrix_x4(wl, sXWl + ao);
+        sm90::ldmatrix_x4_trans(
+            bb, sB + (ks + (lane & 15)) * SB + pr * 16 + (lane >> 4) * 8);
+        sm90::mma_bf16_16816(acc[0], wh, bb[0], bb[1]);
+        sm90::mma_bf16_16816(acc[0], wl, bb[0], bb[1]);
+        sm90::mma_bf16_16816(acc[1], wh, bb[2], bb[3]);
+        sm90::mma_bf16_16816(acc[1], wl, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = e < 2 ? g : g + 8;
+          const int n = pr * 16 + nb * 8 + 2 * c + (e & 1);
+          float* hp = sH + p * SH + n;
+          *hp = decay * *hp + acc[nb][e];
+          split_bf16(*hp, sHh[p * SB + n], sHl[p * SB + n]);
+        }
     }
+    SSD_PHASE(kPhaseUpdate);
   }
   __syncthreads();
-  for (int idx = tid; idx < P * N; idx += kThreads)
-    state_out[hoff + idx] = sH[(idx / N) * sh + idx % N];
+  if (vec & kVecH) {
+    for (int idx = tid; idx < prow * (N / 4); idx += kThreads) {
+      const int p = idx / (N / 4), n = (idx % (N / 4)) * 4;
+      *reinterpret_cast<float4*>(state_out + hoff + (size_t)p * N + n) =
+          *reinterpret_cast<const float4*>(sH + p * SH + n);
+    }
+  } else {
+    for (int idx = tid; idx < prow * N; idx += kThreads)
+      state_out[hoff + idx] = sH[(idx / N) * SH + idx % N];
+  }
+  SSD_PHASE(kPhaseStore);
+  SSD_PHASE_END(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 }  // namespace
@@ -239,26 +412,52 @@ const char* cuda_error_name(int err) {
   return cudaGetErrorName(static_cast<cudaError_t>(err));
 }
 
+// Dynamic shared memory of one block at chunk length Q and state dim N
+// (`smem_bytes` in kernels/ssd_scan.py), or -1 for Q or N below 1.
+int ssd_scan_smem_bytes(int Q, int N) {
+  if (Q < 1 || N < 1) return -1;
+  return Layout(Q, N).BYTES;
+}
+
 // h0 may be null (a zero initial state).  Q is the chunk length
-// (min(chunk_size, L)); smem is the dynamic shared memory the wrapper
-// computed for (Q, P, N).  P must be at most kMaxP.
-int ssd_scan_bf16(const void* x, const void* dt, const void* a,
-                  const void* b, const void* c, const void* h0, void* y,
-                  void* state, int B, int L, int H, int P, int N, int Q,
-                  int smem, void* stream) {
-  if (P > kMaxP || P < 1 || N < 1 || Q < 1) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+// (min(chunk_size, L)); G divides H.  One block per (16 columns of P,
+// head, batch row).  Returns cudaErrorInvalidValue for shapes the kernel
+// does not take or a block beyond the card's shared memory.  The phase
+// build's entry point takes the stamps' buffer last (ssd_phases.cuh).
+int SSD_ENTRY(const void* x, const void* dt, const void* a, const void* b,
+              const void* c, const void* h0, void* y, void* state, int B,
+              int L, int H, int G, int P, int N, int Q,
+              void* stream SSD_PHASE_PARAM) {
+  if (B < 1 || L < 1 || H < 1 || G < 1 || H % G || P < 1 || N < 1 ||
+      Q < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = Layout(Q, N).BYTES;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
     if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
-  dim3 grid(H, B);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = (N % 8 == 0 && aligned(b) && aligned(c) ? kVecBC : 0) |
+                  (P % 8 == 0 && aligned(x) ? kVecX : 0) |
+                  (N % 4 == 0 && (h0 == nullptr || aligned(h0)) &&
+                           aligned(state)
+                       ? kVecH
+                       : 0);
+  const int psplit = (P + kPW - 1) / kPW;
+  dim3 grid(H * psplit, B);
   ssd_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const __nv_bfloat16*>(b),
       static_cast<const __nv_bfloat16*>(c), static_cast<const float*>(h0),
-      static_cast<__nv_bfloat16*>(y), static_cast<float*>(state), L, H, P, N,
-      Q);
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(state), L, H, G, P,
+      N, Q, psplit, vec SSD_PHASE_ARG);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/repro_torch/lib<name>.so`` at the repository root
-(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``).  The build
+(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``); a variant
+(:data:`VARIANTS`) is the same source built again with a compile-time
+switch into a library of its own name.  The build
 happens at first use and again whenever a source, or a ``csrc/*.cuh``
 header it includes, is newer than its library; :func:`build` compiles every stale source with one ``nvcc``
 process per source, all started together.  Nothing here runs at import
@@ -24,6 +26,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 SOURCES = ("block_matmul", "flash_attention", "flash_attention_paged",
            "ssd_scan")
+# name -> (source, extra nvcc flags): the SSD scan with per-phase clock
+# stamps (``ssd_scan.phase_clocks``), never on the serving path
+VARIANTS = {"ssd_scan_phases": ("ssd_scan", ("-DSSD_PHASE_CLOCKS",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,10 +55,14 @@ def lib_path(name: str) -> pathlib.Path:
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    return VARIANTS.get(name, (name, ()))
+
+
 def sources_of(name: str) -> list[pathlib.Path]:
-    """``csrc/<name>.cu`` and every header it includes by a quoted
+    """The source of ``name`` and every header it includes by a quoted
     ``#include`` from beside it, transitively."""
-    deps = [CSRC / f"{name}.cu"]
+    deps = [CSRC / f"{_source(name)[0]}.cu"]
     for path in deps:                       # grows while it is walked
         for inc in _INCLUDE.findall(path.read_text()):
             dep = path.parent / inc
@@ -70,8 +79,9 @@ def _stale(name: str) -> bool:
     return any(built < dep.stat().st_mtime for dep in sources_of(name))
 
 
-def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
-    """Compile every stale source in ``names`` in parallel.  Returns
+def build(names: tuple[str, ...] = SOURCES + tuple(VARIANTS)
+          ) -> dict[str, str]:
+    """Compile every stale library in ``names`` in parallel.  Returns
     name -> compiler output (``-Xptxas -v``: registers, shared memory
     and spills per kernel) for the sources it compiled; raises
     ``RuntimeError`` with the output of every source that failed."""
@@ -83,7 +93,9 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -93,7 +105,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+            failed.append(f"--- nvcc {name} (exit {proc.returncode})\n"
                           f"{out}")
         else:
             os.replace(tmp, lib_path(name))

@@ -144,17 +144,19 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                                              else None))
     xbc = F.silu(xbc.float()).to(x.dtype)
     x_ssm = xbc[..., :di].reshape(bsz, s, nh, p)
-    b_mat = _expand_groups(xbc[..., di:di + g * n].reshape(bsz, s, g, n), nh)
-    c_mat = _expand_groups(xbc[..., di + g * n:].reshape(bsz, s, g, n), nh)
+    # B and C per group (B,S,G,N): the scan reads group h // (H/G) itself
+    b_mat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
+    c_mat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
     dtv = _softplus(dt.float() + params["dt_bias"])
     if valid_len is not None:
         dtv[:, valid_len:] = 0.0
     a = -torch.exp(params["A_log"])
 
     if cache is not None and s == 1:
-        y1, new_ssd = ssd_decode_step(cache["ssd"], x_ssm[:, 0], dtv[:, 0],
-                                      a, b_mat[:, 0].float(),
-                                      c_mat[:, 0].float())
+        y1, new_ssd = ssd_decode_step(
+            cache["ssd"], x_ssm[:, 0], dtv[:, 0], a,
+            _expand_groups(b_mat, nh)[:, 0].float(),
+            _expand_groups(c_mat, nh)[:, 0].float())
         y = y1[:, None]
     else:
         fn = dispatch.get_ssd() if use_kernel_hook else ssd_ref

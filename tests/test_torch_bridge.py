@@ -65,7 +65,7 @@ def test_bridge_round_trip_is_exact():
     jmodel = build_model(jax_reduced_config("gemma-2b"))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     np_tree = jax.tree_util.tree_map(np.asarray, jparams)
-    tparams = params_from_numpy(np_tree)
+    tparams = params_from_numpy(np_tree, device="cpu")
     flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
     back = dict((path_str(p), t) for p, t in tree_leaves_with_path(tparams))
     assert set(back) == {_path_str(p) for p, _ in flat}
@@ -79,12 +79,23 @@ def test_bridge_round_trip_is_exact():
     jcache = jax.tree_util.tree_map(
         lambda a: jnp.asarray(np.random.default_rng(0).standard_normal(
             a.shape), jnp.bfloat16), jmodel.init_cache(2, 8))
-    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache),
+                              device="cpu")
     assert tcache["blocks"]["dense"]["k"].dtype == torch.bfloat16
     out = cache_to_numpy(tcache)
     np.testing.assert_array_equal(
         out["blocks"]["dense"]["v"],
         np.asarray(jcache["blocks"]["dense"]["v"], np.float32))
+
+
+def test_bridge_asks_its_caller_for_a_device():
+    """The port runs on the card unless its caller asks for the CPU, so
+    the bridge has no default device."""
+    tree = {"w": np.zeros((2, 3), np.float32)}
+    for fn in (params_from_numpy, cache_from_numpy):
+        with pytest.raises(TypeError):
+            fn(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
 
 
 def test_init_params_follows_the_reference_distribution():
@@ -179,7 +190,8 @@ def test_bridge_round_trip_carries_the_ssm_leaves():
     bf16 conv state of a cache cross both ways unchanged."""
     jmodel = build_model(jax_reduced_config("mamba2-780m"))
     jparams = jmodel.init(jax.random.PRNGKey(2))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
     back = dict((path_str(p), t) for p, t in tree_leaves_with_path(tparams))
     assert set(back) == {_path_str(p) for p, _ in flat}
@@ -195,7 +207,8 @@ def test_bridge_round_trip_carries_the_ssm_leaves():
     jcache = jax.tree_util.tree_map(
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
         jmodel.init_cache(2, 8))
-    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache),
+                              device="cpu")
     assert tcache["blocks"]["ssm"]["ssd"].dtype == torch.float32
     assert tcache["blocks"]["ssm"]["conv"].dtype == torch.bfloat16
     out = cache_to_numpy(tcache)

@@ -10,8 +10,9 @@ Tolerances: the kernels and their plain versions both accumulate in fp32
 and round the output to bf16 once; they differ only in summation order,
 so at most a rounding flip of the bf16 output (2e-2 relative and
 absolute covers one bf16 ulp at the values drawn here).  The SSD scan's
-fp32 state differs only in summation order (the kernel's cumsum of dt*a
-is a warp-level prefix sum): 1e-3 of its largest entry.  The paged
+fp32 state differs in summation order (the kernel's cumsum of dt*a is a
+warp-level prefix sum) and in its fp32 operands entering tensor-core
+products as bf16 hi + lo (~2^-17 relative): 1e-3 of its largest entry.  The paged
 attention kernel is held at the same 2e-2 against its plain version
 (gather, then dense attention).  The whole model
 compares logits after three residual layers of bf16 activations at 5e-2.
@@ -285,14 +286,69 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_scan(x, dt, a, b.transpose(2, 3).contiguous().transpose(
             2, 3), c)
-    with pytest.raises(ValueError, match="head_dim"):
-        xw = torch.zeros(1, 8, 2, 96, device=cuda_device,
-                         dtype=torch.bfloat16)
-        ssd.ssd_scan(xw, dt, a, b, c)
+    # B and C per group: the groups must divide the heads
+    with pytest.raises(ValueError, match="ssd_scan"):
+        ssd.ssd_scan(x, dt, a, b.repeat(1, 1, 3, 1)[:, :, :3].contiguous(),
+                     c.repeat(1, 1, 3, 1)[:, :, :3].contiguous())
     with pytest.raises(ValueError, match="shared"):
         ssd.ssd_scan(*(t.repeat(1, 64, 1, 1) if t.ndim == 4 else
                        t.repeat(1, 64, 1) if t.ndim == 3 else t
                        for t in (x, dt, a, b, c)), chunk_size=512)
+
+
+# (B, L, H, G, P, N, chunk): the serve's chunk and the 600-token prompt at
+# mamba2-780m's widths with one group, as the model passes B and C, and per
+# head (G = H); a head_dim of 6 column blocks, ragged P and N
+SSD_SPLIT_CASES = [(1, 16, 48, 1, 64, 128, 256), (1, 16, 48, 48, 64, 128, 256),
+                   (1, 600, 48, 1, 64, 128, 256), (4, 16, 48, 1, 64, 128, 256),
+                   (2, 37, 4, 2, 96, 64, 16), (2, 23, 3, 1, 20, 7, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,l,h,g,p,n,chunk", SSD_SPLIT_CASES)
+def test_ssd_scan_split_and_groups_are_right_and_deterministic(
+        cuda_device, bsz, l, h, g, p, n, chunk):
+    gen = torch.Generator(device=cuda_device).manual_seed(l + h + g)
+    x, dt, a, _, _, h0 = _ssd_inputs(gen, cuda_device, bsz, l, h, p, n, True)
+    b = torch.randn(bsz, l, g, n, generator=gen,
+                    device=cuda_device).bfloat16()
+    c = torch.randn(bsz, l, g, n, generator=gen,
+                    device=cuda_device).bfloat16()
+    assert ssd.launch_geometry(bsz, h, p) == (-(-p // 16), bsz * h *
+                                              -(-p // 16))
+    kw = dict(chunk_size=chunk, initial_state=h0)
+    before = ssd.launch_count()
+    y, state = ssd.ssd_scan(x, dt, a, b, c, **kw)
+    y2, state2 = ssd.ssd_scan(x, dt, a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert ssd.launch_count() == before + 2
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    # against the plain version on the per-head copies
+    rep = h // g
+    want_y, want_s = ssd_ref(x, dt, a, b.repeat_interleave(rep, dim=2),
+                             c.repeat_interleave(rep, dim=2), **kw)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+    torch.testing.assert_close(
+        state, want_s, rtol=0,
+        atol=STATE_TOL * want_s.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_paged_and_ssd_kernels_report_the_shared_memory_the_wrappers_expect(
+        cuda_device):
+    # the wrappers refuse calls by their own counts: they must be the
+    # kernels'
+    for d in fa.HEAD_DIMS:
+        for rows in (1, 8, 16, 24, 32, 64, 128):
+            for n_slot in (1, 32, 33, 4096):
+                assert fap.kernel_smem_bytes(rows, d, n_slot) == \
+                    fap.smem_bytes(rows, d, n_slot)
+    assert fap.kernel_smem_bytes(8, 48, 32) == -1
+    for q in (1, 2, 15, 16, 17, 64, 100, 256, 512):
+        for n in (1, 7, 8, 64, 128, 130):
+            assert ssd.kernel_smem_bytes(q, n) == ssd.smem_bytes(q, n)
+    assert ssd.kernel_smem_bytes(256, 128) <= fa.MAX_SMEM_BYTES
 
 
 @pytest.mark.cuda
@@ -374,6 +430,32 @@ def test_flash_attention_paged_kernel_matches_plain(cuda_device, ps, kh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ps,kh,d,h", [(16, 1, 256, 8), (8, 2, 128, 24),
+                                       (32, 1, 64, 8)])
+def test_flash_attention_paged_split_is_right_and_deterministic(
+        cuda_device, ps, kh, d, h):
+    # the largest split launch_geometry gives (8 blocks a cluster); row 0
+    # sees no key and must write 0
+    g = torch.Generator(device=cuda_device).manual_seed(ps + d)
+    kvl = [0, 37, 300, 512]
+    q, kp, vp, table = _paged_inputs(g, cuda_device, 4, kh, ps, kvl, d=d,
+                                     h=h)
+    assert fap.launch_geometry(4, 1, h, kh, ps, table.shape[1])[0] == \
+        fa.MAX_SPLIT
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+    kw = dict(offset=kvl_t - 1, kv_valid_len=kvl_t)
+    before = fap.launch_count()
+    got = fap.flash_attention_paged(q, kp, vp, table, **kw)
+    again = fap.flash_attention_paged(q, kp, vp, table, **kw)
+    assert fap.launch_count() == before + 2
+    want = paged_attention_ref(q, kp, vp, table, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+    assert torch.equal(got, again)
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
 def test_flash_attention_paged_wrapper_refuses_what_the_kernel_cannot_take(
         cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -381,14 +463,21 @@ def test_flash_attention_paged_wrapper_refuses_what_the_kernel_cannot_take(
     with pytest.raises(TypeError):
         fap.flash_attention_paged(q, kp, vp, table.long(), offset=0,
                                   kv_valid_len=1)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fap.flash_attention_paged(q[..., :36].contiguous(),
-                                  kp[..., :36].contiguous(),
-                                  vp[..., :36].contiguous(), table,
-                                  offset=0, kv_valid_len=1)
+    # head dims the kernel is not built for: one below 16-byte loads, one
+    # a multiple of 8 outside (32, 64, 128, 256)
+    for d in (36, 48):
+        with pytest.raises(ValueError, match="head_dim"):
+            fap.flash_attention_paged(q[..., :d].contiguous(),
+                                      kp[..., :d].contiguous(),
+                                      vp[..., :d].contiguous(), table,
+                                      offset=0, kv_valid_len=1)
+    # a table too long to stage beside the block's tiles
+    long_table = torch.zeros(2, 20_000, dtype=torch.int32,
+                             device=cuda_device)
+    assert fap.smem_bytes(8, 256, 20_000) > fa.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="shared"):
-        fap.flash_attention_paged(q.repeat(1, 16, 1, 1), kp, vp, table,
-                                  offset=0, kv_valid_len=1)
+        fap.flash_attention_paged(q, kp, vp, long_table, offset=0,
+                                  kv_valid_len=1)
 
 
 @pytest.mark.cuda

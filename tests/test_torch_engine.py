@@ -36,7 +36,8 @@ MAX_LEN = 32
 def setup():
     jcfg = jax_reduced_config("gemma-2b")
     jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
@@ -212,7 +213,8 @@ MAMBA_PROMPT_LENS = (3, 7, 5, 17, 13)       # 17: a 1-token tail chunk
 def mamba_setup():
     jcfg = jax_reduced_config("mamba2-780m")
     jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     tcfg = get_reduced_config("mamba2-780m")
     prompts = [mamba_prompt(n) for n in MAMBA_PROMPT_LENS]
     assert max(MAX_NEW + (N_NEW,)) <= MAMBA_STREAM_LEN

@@ -44,7 +44,8 @@ def pair():
     jcfg = jax_reduced_config("gemma-2b")
     jmodel = build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     return jmodel, jparams, Model(get_reduced_config("gemma-2b")), tparams
 
 
@@ -242,8 +243,8 @@ def test_select_cache_rows_matches_reference(pair):
         jnp.asarray(live), jax.tree_util.tree_map(jnp.asarray, new),
         jax.tree_util.tree_map(jnp.asarray, old))
     got = tmodel.select_cache_rows(
-        torch.from_numpy(live), params_from_numpy(new),
-        params_from_numpy(old))
+        torch.from_numpy(live), params_from_numpy(new, device="cpu"),
+        params_from_numpy(old, device="cpu"))
     for name in ("k", "v"):
         np.testing.assert_array_equal(
             got["blocks"]["dense"][name].numpy(),
@@ -290,7 +291,8 @@ def mamba_pair():
     jcfg = jax_reduced_config("mamba2-780m")
     jmodel = build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     return jmodel, jparams, Model(get_reduced_config("mamba2-780m")), tparams
 
 

@@ -63,7 +63,8 @@ def setup():
     jcfg = jax_reduced_config("gemma-2b")
     jmodel = build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     tcfg = get_reduced_config("gemma-2b")
     sides = {"jax": (jax_engine, jcfg, jparams, {}),
              "torch": (torch_engine, tcfg, tparams, {"device": "cpu"})}
@@ -252,10 +253,10 @@ def test_paged_attention_wrapper_checks_shapes():
                                   torch.zeros(2, 2, dtype=torch.int32),
                                   offset=0, kv_valid_len=1)
     # the kernel's shared memory at gemma-2b's widths (8 query heads on one
-    # KV head, head_dim 256): fp32 q, accumulator, score tile and m/l/alpha,
-    # bf16 V and row-padded K tiles of 64 keys
-    assert fap.smem_bytes(8, 256) == 84_320
-    assert fap.smem_bytes(3, 8) % 16 == 0
+    # KV head, head_dim 256, 32 table entries a row): the dense kernel's
+    # block of 16 padded rows and 64-key tiles, then the staged entries
+    assert fap.smem_bytes(8, 256, 32) == 152_768 + 128
+    assert fap.smem_bytes(3, 32, 5) % 16 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +396,7 @@ def test_decode_step_on_paged_cache_bit_identical(setup):
     dense, nxt, pos, table, n_pages = _prefilled(setup)
     dense_np = cache_to_numpy(dense)
     paged_np = _paged_from_dense(dense_np, table, n_pages)
-    paged = params_from_numpy(paged_np)
+    paged = params_from_numpy(paged_np, device="cpu")
     tt, tpos = torch.from_numpy(nxt), torch.from_numpy(pos)
     dl, dense = tmodel.decode_step(tp, {"tokens": tt}, dense, tpos)
     pl, paged = tmodel.decode_step(tp, {"tokens": tt}, paged, tpos)
@@ -432,7 +433,7 @@ def test_decode_quantum_on_paged_cache_matches_dense_and_jax(setup):
     jp, tp = sides["jax"][2], sides["torch"][2]
     dense, nxt, pos, table, n_pages = _prefilled(setup)
     paged_np = _paged_from_dense(cache_to_numpy(dense), table, n_pages)
-    paged = params_from_numpy(paged_np)
+    paged = params_from_numpy(paged_np, device="cpu")
     n_left = np.array([4, 1, 0])          # row 1 freezes, row 2 never runs
     args = [torch.from_numpy(a) for a in (nxt, pos, n_left)]
     dblock, _, dpos = tmodel.decode_quantum(tp, args[0], dense, args[1],

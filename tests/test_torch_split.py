@@ -21,8 +21,20 @@ against the kernel's plain version and the JAX reference
     no visible key are compared with the plain version only (the JAX
     reference writes mean(v) there, the kernel contract 0).
 
+  * flash_attention_paged: the dense kernel's split over keys read
+    through the page table, only those some row can see (the pools'
+    garbage never read); fp32 at 2e-4 against the plain version and the
+    JAX paged kernel in interpret mode; a row with no visible key is 0.
+  * ssd_scan: P split into blocks of 16 columns, B and C read per group,
+    each block's fp32 operands of the three fp32-by-bf16 products fed as
+    bf16 hi + lo; fp32 inputs at 2e-4 (the algebra of the split, against
+    the Pallas kernel in interpret mode and ``ssd_ref``), bf16 inputs at
+    2**-7 for y (one bf16 flip) and 2e-4 of the largest state entry for
+    the fp32 state (``tests/test_torch_ssm.py``'s tolerances).
+
 Also: ``cuda_build`` rebuilds a kernel when a header it includes changes.
 """
+import inspect
 import os
 
 import numpy as np
@@ -32,10 +44,15 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention_paged as jax_flash_attention_paged  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_paged as fap  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.serving.engine import H100_LEVEL_TILES  # noqa: E402
 
 # the serving path's GEMMs at full width (gemma-2b gate/up and down,
@@ -285,6 +302,263 @@ def test_split_kv_emulation_writes_zero_for_a_row_with_no_visible_key():
     assert torch.all(got[1] == 0)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# flash_attention_paged: the dense split over keys gathered through the table
+# --------------------------------------------------------------------------
+def test_paged_launch_geometry_at_the_serve_shape():
+    # decode: 4 rows x 1 KV head, pages of 16, 32 table entries a row: a
+    # cluster of 8 per (row, KV head) instead of one block
+    assert fap.launch_geometry(4, 1, 8, 1, 16, 32) == (8, 32)
+    # it takes shapes and nothing else: no offset, kv_valid or table, whose
+    # values live on the card (reading one would add a host sync)
+    assert list(inspect.signature(fap.launch_geometry).parameters) == \
+        ["b", "s", "h", "kh", "page_size", "n_slot"]
+    # decided from the shapes alone, as the dense split is: the same split
+    # as B2's over a 512-key cache, for any page size that gives 512 keys
+    for ps in (8, 16, 32):
+        assert fap.launch_geometry(4, 1, 8, 1, ps, 512 // ps)[0] == \
+            fa.split_kv(4, 1, 1, 512, fap.KV_TILE)
+    # few keys cap the split; rows beyond 64 take more query tiles
+    assert fap.launch_geometry(4, 1, 8, 1, 16, 4) == (1, 4)
+    assert fap.launch_geometry(1, 16, 8, 1, 16, 32) == (8, 16)
+
+
+def paged_split_emulated(q, k_pool, v_pool, table, *, offset, kv_valid_len,
+                         window, softcap, split):
+    """The paged kernel's decomposition: per row, the keys some query can
+    see ([lo, hi)) read through the table key by key, the rest of the row
+    zeros (nothing else of the pools is read); then the dense kernel's
+    blocks of up to 64 rows and its split of the 64-key tiles, combined
+    in rank order."""
+    b_, s_, _, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    t = table.shape[1] * ps
+    k = torch.zeros(b_, t, kh, d)
+    v = torch.zeros(b_, t, kh, d)
+    for b in range(b_):
+        off, kvl = int(offset[b]), min(int(kv_valid_len[b]), t)
+        hi = min(kvl, off + s_)
+        lo = max(0, off - window + 1) if window else 0
+        for j in range(lo, hi):
+            page = int(table[b, j // ps])
+            k[b, j], v[b, j] = k_pool[page, j % ps], v_pool[page, j % ps]
+    return attention_split_emulated(q, k, v, offset=offset,
+                                    kv_valid_len=kv_valid_len, window=window,
+                                    softcap=softcap, bq=fa.MAX_ROWS,
+                                    bkv=fap.KV_TILE, split=split)
+
+
+def _paged_inputs(rng, b, s, h, kh, d, ps, n_slot, kvl):
+    """Pools of garbage (~1e4) whose pages are shuffled across rows; each
+    row's valid keys on its mapped pages, its other entries on the trash
+    page 0 or on a spare page."""
+    n_pages = b * n_slot + 2
+    kp = 1e4 * rng.standard_normal((n_pages, ps, kh, d))
+    vp = 1e4 * rng.standard_normal((n_pages, ps, kh, d))
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, n_slot), np.int32)
+    for i in range(b):
+        mapped = -(-kvl[i] // ps)
+        table[i, :mapped] = perm[i * n_slot:i * n_slot + mapped]
+        table[i, mapped:] = rng.choice([0, perm[-1]], n_slot - mapped)
+        for j in range(mapped):
+            rows = min(ps, kvl[i] - j * ps)
+            kp[table[i, j], :rows] = rng.standard_normal((rows, kh, d))
+            vp[table[i, j], :rows] = rng.standard_normal((rows, kh, d))
+    q = rng.standard_normal((b, s, h, d))
+    return [a.astype(np.float32) for a in (q, kp, vp)] + [table]
+
+
+# (B, S, H, KH, page size, n_slot, kv_valid, window, softcap, split): the
+# serve's shape (its split from launch_geometry); GQA; a row with no
+# visible key; a window and a softcap; pages of 8, 16 and 32
+PAGED_SPLIT_CASES = [
+    (4, 1, 8, 1, 16, 32, (0, 69, 261, 301), None, None, "serve"),
+    (3, 1, 4, 2, 8, 12, (96, 1, 50), None, None, 8),
+    (2, 1, 4, 1, 32, 4, (128, 0), 40, None, 4),
+    (3, 1, 4, 2, 8, 9, (5, 72, 33), 20, 30.0, 3),
+    (2, 2, 4, 1, 16, 5, (80, 17), None, None, 2),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kh,ps,n_slot,kv_valid,window,softcap,split",
+                         PAGED_SPLIT_CASES)
+def test_paged_split_emulation_matches_plain_and_jax(b, s, h, kh, ps, n_slot,
+                                                     kv_valid, window, softcap,
+                                                     split):
+    rng = np.random.default_rng(ps * 100 + n_slot + b)
+    d = 16
+    qn, kn, vn, table = _paged_inputs(rng, b, s, h, kh, d, ps, n_slot,
+                                      kv_valid)
+    kvl = np.asarray(kv_valid, np.int32)
+    off = np.maximum(kvl - s, 0).astype(np.int32)
+    if split == "serve":
+        split, blocks = fap.launch_geometry(b, s, h, kh, ps, n_slot)
+        assert (split, blocks) == (8, 32)
+    tq, tk, tv, tt = (torch.from_numpy(a) for a in (qn, kn, vn, table))
+    toff, tkvl = torch.from_numpy(off), torch.from_numpy(kvl)
+    got = paged_split_emulated(tq, tk, tv, tt, offset=toff,
+                               kv_valid_len=tkvl, window=window,
+                               softcap=softcap, split=split)
+    plain = fap.paged_attention_plain(tq, tk, tv, tt, offset=toff,
+                                      kv_valid_len=tkvl, window=window,
+                                      softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    assert torch.all(got[tkvl == 0] == 0)
+    want = jax_flash_attention_paged(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+        jnp.asarray(table), offset=jnp.asarray(off),
+        kv_valid_len=jnp.asarray(kvl), window=window, softcap=softcap,
+        interpret=True)
+    # the JAX kernel writes mean(v) on a row with no visible key, the
+    # kernel contract 0: compare the rows that see a key
+    seen = kvl > 0
+    np.testing.assert_allclose(got.numpy()[seen], np.asarray(want)[seen],
+                               rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# ssd_scan: P split into blocks of 16 columns, B and C read per group
+# --------------------------------------------------------------------------
+def _bf16_operand(v):
+    """An fp32 operand as the kernel feeds it to a bf16 product: hi =
+    bf16(v) plus lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_split_emulated(x, dt, a, b, c, *, chunk_size, initial_state=None,
+                       operand_split=True):
+    """The SSD kernel's decomposition: one block per (row, head, 16
+    columns of P), each carrying its slice of the state through the
+    chunks; head h reads B and C of group h // (H / G); per chunk the
+    cumsum of dt*a, S = C.B^T, M = S exp(seg_i - seg_j) dt_j on j <= i (0
+    elsewhere, the exponent never taken there), y = M.x + exp(seg) C.h,
+    h' = exp(total) h + (x w)^T.B.  With ``operand_split`` the fp32
+    operands M, h and x*w enter their products as bf16 hi + lo, as on
+    the card's tensor cores."""
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    grp = torch.arange(h) // (h // b.shape[2])
+    xf, bf, cf = x.float(), b.float()[:, :, grp], c.float()[:, :, grp]
+    op = _bf16_operand if operand_split else (lambda v: v)
+    q = min(chunk_size, l)
+    y = torch.empty(bsz, l, h, p)
+    state = (torch.zeros(bsz, h, p, n) if initial_state is None
+             else initial_state.float().clone())
+    for p0 in range(0, p, 16):
+        cols = slice(p0, min(p0 + 16, p))
+        hs = state[:, :, cols].clone()
+        for c0 in range(0, l, q):
+            r = min(q, l - c0)
+            xs = xf[:, c0:c0 + r, :, cols]
+            dts = dt[:, c0:c0 + r].float()
+            bs, cs = bf[:, c0:c0 + r], cf[:, c0:c0 + r]
+            seg = torch.cumsum(dts * a.float(), dim=1)
+            causal = torch.ones(r, r, dtype=torch.bool).tril()[None, :, :,
+                                                               None]
+            diff = torch.where(causal, seg[:, :, None] - seg[:, None], 0.0)
+            s = torch.einsum("bihn,bjhn->bijh", cs, bs)
+            m = torch.where(causal, s * torch.exp(diff) * dts[:, None], 0.0)
+            yc = torch.einsum("bijh,bjhp->bihp", op(m), xs)
+            yc = yc + torch.exp(seg)[..., None] * torch.einsum(
+                "bihn,bhpn->bihp", cs, op(hs))
+            w = torch.exp(seg[:, -1:] - seg) * dts
+            hs = torch.exp(seg[:, -1])[..., None, None] * hs + torch.einsum(
+                "bjhp,bjhn->bhpn", op(xs * w[..., None]), bs)
+            y[:, c0:c0 + r, :, cols] = yc
+        state[:, :, cols] = hs
+    return y.to(x.dtype), state
+
+
+def _ssd_case(rng, bsz, l, h, g, p, n, with_init):
+    x = rng.standard_normal((bsz, l, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, (bsz, l, h)).astype(np.float32)
+    a = -rng.uniform(0.5, 2.0, (h,)).astype(np.float32)
+    b = rng.standard_normal((bsz, l, g, n)).astype(np.float32)
+    c = rng.standard_normal((bsz, l, g, n)).astype(np.float32)
+    h0 = (rng.standard_normal((bsz, h, p, n)).astype(np.float32)
+          if with_init else None)
+    return x, dt, a, b, c, h0
+
+
+def _heads(t, h):
+    """(B, L, G, N) expanded to the per-head form the JAX functions take."""
+    return np.repeat(t, h // t.shape[2], axis=2)
+
+
+# (B, L, H, G, P, N, chunk, initial state): one group (mamba2-780m's
+# layout) over three chunks with a ragged tail and a ragged P; two groups;
+# as many groups as heads (the per-head form)
+SSD_SPLIT_CASES = [(2, 40, 4, 1, 20, 8, 16, True),
+                   (1, 24, 4, 2, 32, 16, 8, False),
+                   (2, 21, 3, 3, 16, 8, 8, True),
+                   (1, 17, 2, 1, 48, 32, 32, True)]
+
+
+@pytest.mark.parametrize("bsz,l,h,g,p,n,chunk,with_init", SSD_SPLIT_CASES)
+def test_ssd_split_emulation_matches_pallas_and_ref(bsz, l, h, g, p, n,
+                                                    chunk, with_init):
+    rng = np.random.default_rng(l * 10 + h + g)
+    x, dt, a, b, c, h0 = _ssd_case(rng, bsz, l, h, g, p, n, with_init)
+    t = [torch.from_numpy(v) for v in (x, dt, a, b, c)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, s = ssd_split_emulated(*t, chunk_size=chunk, initial_state=th0,
+                              operand_split=False)
+    j = [jnp.asarray(v) for v in (x, dt, a, _heads(b, h), _heads(c, h))]
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    y_k, s_k = jax_ops.ssd_scan(*j, chunk_size=chunk, initial_state=jh0,
+                                interpret=True)
+    y_r, s_r = jax_ref.ssd_ref(*j, chunk_size=5, initial_state=jh0)
+    y_p, s_p = ssd.ssd_scan_plain(*t, chunk_size=chunk, initial_state=th0)
+    for want_y, want_s in ((y_k, s_k), (y_r, s_r), (y_p, s_p)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=2e-4,
+                                   atol=2e-4)
+
+
+BF16_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("bsz,l,h,g,p,n,chunk,with_init", [
+    (2, 40, 4, 1, 20, 8, 16, True),
+    # mamba2-780m's widths (P 64, N 128, one group) on two heads: the
+    # 600-token prompt's three chunks of 256 with the operand split
+    (1, 600, 2, 1, 64, 128, 256, True)])
+def test_ssd_operand_split_keeps_the_state_through_three_chunks(
+        bsz, l, h, g, p, n, chunk, with_init):
+    """bf16 x, B and C as the card gets them; the three fp32-by-bf16
+    products fed as bf16 hi + lo: y within one bf16 flip of the Pallas
+    kernel and of the plain version, the fp32 state within 2e-4 of its
+    largest entry after three chunks (inside chip_smoke's 1e-3)."""
+    rng = np.random.default_rng(l + p)
+    x, dt, a, b, c, h0 = _ssd_case(rng, bsz, l, h, g, p, n, with_init)
+    bf = [torch.from_numpy(v).to(torch.bfloat16) for v in (x, b, c)]
+    tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
+    th0 = torch.from_numpy(h0)
+    y, s = ssd_split_emulated(bf[0], tdt, ta, bf[1], bf[2], chunk_size=chunk,
+                              initial_state=th0)
+    assert y.dtype == torch.bfloat16
+    y_p, s_p = ssd.ssd_scan_plain(bf[0], tdt, ta, bf[1], bf[2],
+                                  chunk_size=chunk, initial_state=th0)
+    jb = [jnp.asarray(np.asarray(v.float()), jnp.bfloat16) for v in bf]
+    y_k, s_k = jax_ops.ssd_scan(jb[0], jnp.asarray(dt), jnp.asarray(a),
+                                jnp.asarray(_heads(np.asarray(jb[1]), h)),
+                                jnp.asarray(_heads(np.asarray(jb[2]), h)),
+                                chunk_size=chunk,
+                                initial_state=jnp.asarray(h0),
+                                interpret=True)
+    for want_y, want_s in ((y_p.float(), s_p), (y_k, s_k)):
+        want_s = np.asarray(want_s, np.float32)
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want_y, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        np.testing.assert_allclose(s.numpy(), want_s, rtol=0,
+                                   atol=2e-4 * np.abs(want_s).max())
 
 
 # --------------------------------------------------------------------------

@@ -140,9 +140,32 @@ def test_ssd_scan_masks_the_ragged_tail_like_padding():
 def test_ssd_shared_memory_sizing():
     """The serve's shapes fit one block; what does not fit is refused by
     the wrapper before anything reaches the card."""
-    assert ssd.smem_bytes(256, 64, 128) == 218_624
-    assert ssd.smem_bytes(256, 64, 128) <= ssd.MAX_SMEM_BYTES
-    assert ssd.smem_bytes(512, 64, 128) > ssd.MAX_SMEM_BYTES
+    assert ssd.smem_bytes(256, 128) == 205_056
+    assert ssd.smem_bytes(256, 128) <= ssd.MAX_SMEM_BYTES
+    assert ssd.smem_bytes(512, 128) > ssd.MAX_SMEM_BYTES
+    # one block per 16 columns of P: mamba2-780m's 48 heads of 64 at B = 1
+    assert ssd.launch_geometry(1, 48, 64) == (4, 192)
+    assert ssd.launch_geometry(2, 3, 20) == (2, 12)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_ssd_scan_plain_takes_b_and_c_per_group(g):
+    """B and C per group (B, L, G, N): head h reads group h // (H/G),
+    bit for bit what the per-head copies give."""
+    rng = np.random.default_rng(g)
+    x, dt, a, _, _, h0 = _scan_inputs(rng, 2, 20, 4, 8, 8, True)
+    b, c = (rng.standard_normal((2, 20, g, 8)).astype(np.float32)
+            for _ in range(2))
+    grouped = ssd.ssd_scan(*(_t(v) for v in (x, dt, a, b, c)), chunk_size=8,
+                           initial_state=_t(h0))
+    per_head = ssd.ssd_scan(*(_t(v) for v in (x, dt, a, np.repeat(
+        b, 4 // g, axis=2), np.repeat(c, 4 // g, axis=2))), chunk_size=8,
+        initial_state=_t(h0))
+    for got, want in zip(grouped, per_head):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(*(_t(v) for v in (x, dt, a, b[:, :, :1].repeat(
+            3, axis=2), c[:, :, :1].repeat(3, axis=2))), chunk_size=8)
 
 
 def test_get_ssd_reads_no_tile_table(monkeypatch):
@@ -172,7 +195,8 @@ def mixer():
     jparams = build_model(jcfg).init(jax.random.PRNGKey(1))
     layer0 = jax.tree_util.tree_map(lambda a: a[0],
                                     jparams["blocks"]["ssm"]["mixer"])
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, layer0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, layer0),
+                                device="cpu")
     return jcfg, layer0, get_reduced_config("mamba2-780m"), tparams
 
 
