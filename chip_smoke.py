@@ -33,12 +33,23 @@ Phases, each fatal on failure:
      ``prefill_step`` and decoded by 8-step quanta while the interference
      level cycles; the launch counters are zeroed just before and read
      just after, and must equal the forward passes run times the
-     kernel calls of one pass;
-  4. profile: one 8-step decode quantum under torch.profiler, device
-     time by kernel and the device's idle share;
+     kernel calls of one pass.  The serve runs twice, first eagerly
+     (``cuda_graphs=False``), then with CUDA graphs (the warmup captures
+     every call of the full level grid: captures, their seconds and the
+     device memory they add are reported); the two must give the same
+     token streams and launch counts, and the graphed serve captures
+     nothing.  Then a full level sweep on the graphed engine captures
+     nothing; PAIRS alternating eager/graph pairs of an 8-step decode
+     quantum and of a 16-token prefill chunk give wall, device busy
+     (torch.profiler), idle share and decode tokens/s; and a host profile
+     of one eager quantum (cProfile, and torch.profiler's CPU activity)
+     says where the host's time goes;
+  4. profile: one 8-step decode quantum (a graph replay) under
+     torch.profiler, device time by kernel and the device's idle share;
   5. whole-model check: first-prefill-chunk and first-decode logits
      through the kernels and through the plain versions, same weights;
-  6. serve, profile and check mamba2-780m the same way (48 layers,
+  6. serve (eager and graphed), sweep, pair, profile and check
+     mamba2-780m the same way (48 layers,
      d_inner 3072, 48 SSD heads): ``ssd_scan`` launches once per layer
      for every prefill chunk of two or more tokens; the profile covers
      one 16-token prefill chunk and one 8-step decode quantum; the
@@ -50,7 +61,8 @@ Phases, each fatal on failure:
      partial-tail borrower whose first decode copies the shared page);
      exact launch accounting (``flash_attention_paged`` once per layer
      and decode step, ``flash_attention`` once per layer and prefill
-     chunk), an empty pool after the serve, a profile of one paged decode
+     chunk), an empty pool after the serve, eager and graphed as above
+     (level sweep, decode-quantum pairs), a profile of one paged decode
      quantum, and a paged whole-model check (decode steps on a shuffled
      page table through the kernels against the plain versions and
      against the dense cache);
@@ -69,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import itertools
 import json
 import pathlib
@@ -612,11 +625,31 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
 
     engine = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
                            max_len=MAX_LEN, device=dev, **(engine_kw or {}))
-    what = f"{cfg.name}{' paged' if engine.paged else ''}"
+    graphs = engine.version_cache.graphs is not None
+    what = (f"{cfg.name}{' paged' if engine.paged else ''}"
+            f"{'' if graphs else ' eager'}")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
     t0 = time.perf_counter()
     stats = engine.warmup()
     torch.cuda.synchronize()
-    report(f"{what} warmup: {time.perf_counter() - t0:.2f} s, {stats}")
+    warmup_s = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_stats()
+    captures = {
+        "warmup_s": warmup_s, "builds": engine.version_cache.traces,
+        "captures": sum(c.graph is not None for c in
+                        engine.version_cache._calls.values()),
+        "capture_s": engine.version_cache.capture_s,
+        "allocated_bytes_delta": mem1["allocated_bytes.all.current"]
+        - mem0["allocated_bytes.all.current"],
+        "reserved_bytes_delta": mem1["reserved_bytes.all.current"]
+        - mem0["reserved_bytes.all.current"]}
+    report(f"{what} warmup: {warmup_s:.2f} s, {stats}; "
+           f"{captures['captures']} CUDA graphs captured in "
+           f"{captures['capture_s']:.2f} s; device memory allocated "
+           f"+{captures['allocated_bytes_delta'] / 2**20:.1f} MiB, reserved "
+           f"+{captures['reserved_bytes_delta'] / 2**20:.1f} MiB over the "
+           "warmup (the graphs' pool and outputs)")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(prompts)]
     levels = [cm.grid_point(i) for i in (0, 5, 9)]
@@ -682,7 +715,8 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
                 f"{want[name]} ({why[name]})")
     tokens = engine.tokens_decoded - tokens0
     out = {
-        "model": cfg.name, "requests": len(reqs), "tokens": tokens,
+        "model": cfg.name, "cuda_graphs": graphs, "warmup": captures,
+        "requests": len(reqs), "tokens": tokens,
         "wall_s": wall, "tokens_per_s": tokens / wall,
         "decode_tokens_per_s": quantum_tokens / (sum(quantum_ms) / 1e3),
         "quanta": quanta, "quantum_ms_median": statistics.median(quantum_ms),
@@ -851,6 +885,104 @@ def profile_quantum(engine, prompts, report, groups) -> dict:
                            QUANTUM, report)
 
 
+def _host_group(file: str, name: str) -> str:
+    """cProfile's function key -> where that host time goes."""
+    if "repro_torch" in file:
+        return "port Python"
+    if file == "~":
+        # a C function called from Python: torch's ops (argument parsing,
+        # dispatch, the launch) or a Python builtin
+        # (torch's functions live on a type object, _VariableFunctions)
+        return ("torch C++ ops" if "torch" in name or "Tensor" in name
+                or "of type object" in name else "Python builtins")
+    if "torch/cuda" in file:
+        return "torch.cuda Python (device contexts, streams)"
+    if "/torch/" in file:
+        return "torch Python"
+    return "other Python"
+
+
+def host_profile(engine, prompts, report) -> dict:
+    """Where the host's time goes in one eager 8-step decode quantum of
+    four rows: cProfile's own time per function, grouped into the port's
+    Python (model code, kernel wrappers with their ctypes calls, tile
+    lookups, tree walks), torch's C++ ops (PyTorch's eager dispatch and
+    the launches it makes), torch's Python (``torch.cuda.device``
+    contexts, ``current_stream``) and the rest.  cProfile adds a fixed
+    cost to every Python call, so its shares are read beside the
+    unprofiled wall of the same quantum."""
+    import cProfile
+    import pstats
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    engine.set_interference_level(cm.grid_point(0))
+    for i, p in enumerate(prompts[:BATCH_SLOTS]):
+        require(engine.admit_request(Request(
+            rid=300 + i, prompt=p, max_new_tokens=4 * QUANTUM), drain=True),
+            "host profile: no free slot")
+    wall_us = timed(lambda: engine.step_quantum(QUANTUM))
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    engine.step_quantum(QUANTUM)
+    torch.cuda.synchronize()
+    prof.disable()
+    profiled_us = (time.perf_counter() - t0) * 1e6
+    stats = pstats.Stats(prof).stats
+    groups: dict[str, float] = collections.Counter()
+    funcs = []
+    for (file, line, name), (_, calls, tottime, cumtime, _) in stats.items():
+        groups[_host_group(file, name)] += tottime * 1e6
+        funcs.append((tottime * 1e6, calls, cumtime * 1e6,
+                      f"{pathlib.Path(file).name}:{line}({name})"))
+    funcs.sort(reverse=True)
+    total = sum(groups.values())
+    # the same quantum under torch.profiler's CPU activity: the host time
+    # spent inside torch's ops, whatever called them (cProfile books an
+    # op reached through an operator, x * y or x[i], to the Python line)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as tprof:
+        t0 = time.perf_counter()
+        engine.step_quantum(QUANTUM)
+        torch.cuda.synchronize()
+        tprof_us = (time.perf_counter() - t0) * 1e6
+    op_us = sum(e.self_cpu_time_total for e in tprof.key_averages())
+    n_ops = sum(e.count for e in tprof.key_averages()
+                if e.key.startswith("aten::"))
+    for slot, req in enumerate(engine.slot_req):
+        if req is not None and req.rid >= 300:
+            engine.release_slot(slot)
+    out = {"tool": "cProfile, torch.profiler (CPU)",
+           "wall_ms": wall_us / 1e3,
+           "torch_profiler_wall_ms": tprof_us / 1e3,
+           "torch_profiler_op_ms": op_us / 1e3,
+           "torch_profiler_aten_ops": n_ops,
+           "profiled_wall_ms": profiled_us / 1e3,
+           "profiled_total_ms": total / 1e3,
+           "share": {g: us / total for g, us in groups.items()},
+           "ms": {g: us / 1e3 for g, us in groups.items()},
+           "top_functions": [{"fn": f, "tottime_ms": t / 1e3, "calls": n,
+                              "cumtime_ms": c / 1e3}
+                             for t, n, c, f in funcs[:25]]}
+    report(f"host profile {engine.cfg.name} one eager {QUANTUM}-step "
+           f"quantum (cProfile): wall {out['wall_ms']:.2f} ms unprofiled, "
+           f"{out['profiled_wall_ms']:.2f} ms profiled; own time by group "
+           + ", ".join(f"{g} {out['ms'][g]:.1f} ms ({s:.3f})"
+                       for g, s in sorted(out["share"].items(),
+                                          key=lambda kv: -kv[1])))
+    report(f"host profile {engine.cfg.name} (torch.profiler, CPU): "
+           f"{out['torch_profiler_op_ms']:.1f} ms inside torch's ops "
+           f"({out['torch_profiler_aten_ops']} aten ops) of "
+           f"{out['torch_profiler_wall_ms']:.1f} ms profiled wall")
+    report(f"host profile {engine.cfg.name}: largest own times (ms, calls): "
+           + "; ".join(f"{d['fn']} {d['tottime_ms']:.1f} x{d['calls']}"
+                       for d in out["top_functions"][:10]))
+    return out
+
+
 def profile_prefill_chunk(engine, prompt, report, groups) -> dict:
     """One 16-token prefill chunk (a whole 16-token prompt: the chunk
     ends in the admission's first-token sync), unprofiled and then
@@ -873,6 +1005,128 @@ def profile_prefill_chunk(engine, prompt, report, groups) -> dict:
             engine.release_slot(slot)
     return profile_summary(f"{engine.cfg.name} one 16-token prefill chunk",
                            walls[0], prof, 1, report)
+
+
+def level_sweep(engine, prompts, report) -> dict:
+    """After ``warmup()``, a full level sweep builds nothing: at every
+    grid level an admission (its chunks), a one-step decode and fused
+    quanta of every K-bucket, then the requests run out.  Every call is a
+    replay of a graph captured in the warmup."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    vc = engine.version_cache
+    traces0, misses0 = vc.traces, vc.misses
+    replays0 = sum(c.replays for c in vc._calls.values())
+    for i in range(cm.NUM_LEVELS):
+        engine.set_interference_level(cm.grid_point(i))
+        require(engine.admit_request(Request(
+            rid=600 + i, prompt=prompts[i % 4], max_new_tokens=40),
+            drain=True), "level sweep: no free slot")
+        engine.step()
+        for k in engine.quantum_buckets:
+            engine.step_quantum(k)
+    engine.run_to_completion([])
+    replays = sum(c.replays for c in vc._calls.values()) - replays0
+    require(vc.traces == traces0 and vc.misses == misses0,
+            f"level sweep after warmup built {vc.traces - traces0} calls, "
+            f"{vc.misses - misses0} versions")
+    report(f"{engine.cfg.name}{' paged' if engine.paged else ''} level "
+           f"sweep over {cm.NUM_LEVELS} levels after warmup: 0 captures, "
+           f"{replays} graph replays")
+    return {"levels": cm.NUM_LEVELS, "captures": 0, "replays": replays}
+
+
+PAIRS = 5
+
+
+def _summary(rows: list[dict]) -> dict:
+    """Median, min and max of each measured key (None: not measured)."""
+    out = {}
+    for k in rows[0]:
+        vals = [r[k] for r in rows if r[k] is not None]
+        if vals:
+            out[k] = {"median": statistics.median(vals), "min": min(vals),
+                      "max": max(vals), "n": len(vals)}
+    return out
+
+
+def eager_graph_pairs(eager, graphed, prompts, report, groups, *,
+                      chunk: bool) -> dict:
+    """Alternating eager/graph pairs in one call, PAIRS of each: an
+    8-step decode quantum of four rows at level 0 (and, with ``chunk``, a
+    16-token prefill chunk that ends in the admission's first-token
+    sync).  Each run is timed alone (the wall) and again under
+    torch.profiler (device busy); the idle share is 1 - busy / wall.
+    Pair i runs eager first when i is even, graphs first when odd."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    engines = {"eager": eager, "graphs": graphed}
+    for eng in engines.values():
+        eng.set_interference_level(cm.grid_point(0))
+        for i, p in enumerate(prompts[:BATCH_SLOTS]):
+            require(eng.admit_request(Request(
+                rid=700 + i, prompt=p,
+                max_new_tokens=2 * PAIRS * QUANTUM + 1), drain=True),
+                "pairs: no free slot")
+
+    def run(eng, kind, rid):
+        if kind == "decode_quantum":
+            def quantum_run():
+                handle = eng.begin_quantum(QUANTUM)
+                require(handle is not None and int(handle.n_left.sum()) ==
+                        BATCH_SLOTS * QUANTUM, "pairs: a quantum ran short")
+                eng.finish_quantum(handle)
+            return quantum_run
+
+        def chunk_run():
+            require(eng.admit_request(Request(rid=rid, prompt=prompts[1][:16],
+                                              max_new_tokens=1)),
+                    "pairs: no free slot")
+            eng.prefill_step()
+            eng.release_slot(next(s for s, r in enumerate(eng.slot_req)
+                                  if r is not None and r.rid == rid))
+        return chunk_run
+
+    out = {}
+    for kind in ("decode_quantum", "prefill_chunk") if chunk else \
+            ("decode_quantum",):
+        if kind == "prefill_chunk":      # the chunk takes the last slot
+            for eng in engines.values():
+                eng.release_slot(next(
+                    s for s, r in enumerate(eng.slot_req)
+                    if r is not None and r.rid == 700 + BATCH_SLOTS - 1))
+        rows = {name: [] for name in engines}
+        for i in range(PAIRS):
+            order = list(engines.items())
+            if i % 2:
+                order.reverse()
+            for name, eng in order:
+                wall_us = timed(run(eng, kind, 800 + 2 * i))
+                prof = device_profile(run(eng, kind, 801 + 2 * i), groups)
+                busy = prof["busy_us"]
+                rows[name].append({
+                    "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+                    "idle_share": (max(0.0, 1.0 - busy / wall_us)
+                                   if busy else None),
+                    "decode_tokens_per_s": (
+                        BATCH_SLOTS * QUANTUM / (wall_us / 1e6)
+                        if kind == "decode_quantum" else None),
+                    "device_ops": prof["n_device_ops"]})
+        out[kind] = {name: {"runs": r, "summary": _summary(r)}
+                     for name, r in rows.items()}
+        for name in engines:
+            sm = out[kind][name]["summary"]
+            report(f"pairs {eager.cfg.name}{' paged' if eager.paged else ''}"
+                   f" {kind} {name} ({PAIRS} runs, median [min, max]): "
+                   + "; ".join(f"{k} {v['median']:.4g} [{v['min']:.4g}, "
+                               f"{v['max']:.4g}]" for k, v in sm.items()))
+    for eng in engines.values():
+        for slot, req in enumerate(eng.slot_req):
+            if req is not None and req.rid >= 700:
+                eng.release_slot(slot)
+    return out
 
 
 def whole_model_check(cfg, params, prompt, dev, report) -> dict:
@@ -1437,11 +1691,22 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
     groups = {"block_matmul": "block_matmul_kernel",
               "flash_attention": "flash_attention_kernel",
               "flash_attention_paged": "paged_flash_kernel"}
+    eager, eager_out = serve(cfg, params, paged_prompts, dev, report,
+                             counters, paged_launches(cfg),
+                             engine_kw={"page_size": PAGE_SIZE,
+                                        "cuda_graphs": False},
+                             after={2: 0, 3: 0})
+    check_paged_serve(eager, eager_out, report)
     engine, out = serve(cfg, params, paged_prompts, dev, report, counters,
                         paged_launches(cfg),
                         engine_kw={"page_size": PAGE_SIZE},
                         after={2: 0, 3: 0})
     check_paged_serve(engine, out, report)
+    same_streams(f"{cfg.name} paged", out, eager_out, report)
+    out["eager"] = eager_out
+    out["level_sweep"] = level_sweep(engine, prompts, report)
+    out["pairs"] = eager_graph_pairs(eager, engine, prompts, report, groups,
+                                     chunk=False)
     same = [out["streams"][j] == dense_streams[i]
             for j, i in enumerate(order) if i is not None]
     out["streams_equal_to_dense"] = sum(same)
@@ -1455,8 +1720,22 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
     prof["flash_attention_paged_share"] = share
     report("profile paged quantum: flash_attention_paged share of device "
            "time " + ("not measured" if share is None else f"{share:.4f}"))
-    del engine
+    del engine, eager
+    gc.collect()
     return out, prof
+
+
+def same_streams(what, graphed, eager, report) -> None:
+    """The graphed serve's token streams must be the eager serve's."""
+    same = sum(a == b for a, b in zip(graphed["streams"], eager["streams"]))
+    require(graphed["streams"] == eager["streams"],
+            f"{what}: {same} of {len(eager['streams'])} token streams "
+            "with CUDA graphs equal the eager serve's")
+    report(f"{what}: {same} of {len(eager['streams'])} token streams with "
+           "CUDA graphs equal the eager serve's (cuda_graphs=False) in this "
+           "call; median quantum "
+           f"{graphed['quantum_ms_median']:.2f} ms with graphs, "
+           f"{eager['quantum_ms_median']:.2f} ms eager")
 
 
 def main() -> int:
@@ -1516,7 +1795,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     rng = np.random.default_rng(args.seed)
-    served, prof, model_check = {}, {}, {}
+    served, prof, model_check, host = {}, {}, {}, {}
     for name in ("gemma-2b", "mamba2-780m"):
         cfg = get_config(name)
         t0 = time.perf_counter()
@@ -1541,15 +1820,24 @@ def main() -> int:
             counters, groups = ({"ssd_scan": ssd.LAUNCHES},
                                 {"ssd_scan": "ssd_scan_kernel"})
             expected = ssm_launches(cfg)
+        eager, eager_out = serve(cfg, params, prompts, dev, report, counters,
+                                 expected, engine_kw={"cuda_graphs": False})
         engine, served[name] = serve(cfg, params, prompts, dev, report,
                                      counters, expected)
+        same_streams(name, served[name], eager_out, report)
+        served[name]["eager"] = eager_out
+        served[name]["level_sweep"] = level_sweep(engine, prompts, report)
+        served[name]["pairs"] = eager_graph_pairs(
+            eager, engine, prompts, report, groups, chunk=True)
+        host[name] = host_profile(eager, prompts, report)
         prof[name] = {}
         if cfg.ssm is not None:
             prof[name]["prefill_chunk"] = profile_prefill_chunk(
                 engine, prompts[1], report, groups)
         prof[name]["decode_quantum"] = profile_quantum(engine, prompts,
                                                        report, groups)
-        del engine
+        del engine, eager
+        gc.collect()             # the version caches' graphs and pools
         if cfg.ssm is None:
             model_check[name] = whole_model_check(cfg, params, prompts[1],
                                                   dev, report)
@@ -1589,7 +1877,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
-        "profile": prof, "whole_model": model_check, "times": times,
+        "profile": prof, "host_profile": host, "whole_model": model_check,
+        "times": times,
         "ssd_phases": ssd_phases,
         "kernels": kernels, "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))

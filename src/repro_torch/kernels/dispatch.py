@@ -102,6 +102,16 @@ def load_ladder(path) -> list:
     return active_ladder()
 
 
+def launch_counters() -> tuple:
+    """Every kernel wrapper's launch counter (``LAUNCHES``).  A wrapper
+    counts the launches it makes in Python, so a CUDA graph's replay adds
+    the launches its capture recorded here (``serving.version_cache``)."""
+    from repro_torch.kernels import block_matmul, flash_attention, \
+        flash_attention_paged, ssd_scan
+    return (block_matmul.LAUNCHES, flash_attention.LAUNCHES,
+            flash_attention_paged.LAUNCHES, ssd_scan.LAUNCHES)
+
+
 def get_matmul() -> Callable:
     """``x (..., K) @ w (K, N)`` through ``block_matmul`` under the
     current ``"matmul"`` tiles."""

@@ -118,10 +118,11 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
 
     cache: {"k": (B, Tmax, K, D), "v": ...}; cache_index: absolute
     position of the first new token — a Python int when all rows are
-    aligned (prefill), or a (B,) tensor of per-row positions (continuous
-    batching decode).  ``live`` (B,) bool masks the per-row write: a row
+    aligned (prefill from the host), or a (B,) tensor of per-row positions
+    (continuous batching decode, and a prefill chunk whose start is a
+    device scalar).  ``live`` (B,) bool masks the per-row write: a row
     that is not live keeps its cache entry bit-exact (frozen rows of a
-    fused decode quantum).
+    fused decode quantum); None writes every row.
 
     With ``page_table`` (B, pages_per_slot) the cache leaves are physical
     page pools ``(n_pages + 1, page_size, K, D)``: the new token's KV
@@ -168,6 +169,8 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         ck, cv = cache["k"], cache["v"]
         if isinstance(cache_index, int):
+            # a host int is checked on the host; a tensor's rows are the
+            # caller's to keep inside the cache (reading them would sync)
             if cache_index < 0 or cache_index + s > ck.shape[1]:
                 raise ValueError(
                     f"cache write [{cache_index}, {cache_index + s}) "

@@ -191,11 +191,12 @@ class TorchModel:
 
     def _run_blocks(self, params, x, *, positions, cache, t, live=None,
                     valid_len=None):
-        """``valid_len`` (a host int, chunked prefill) reaches the ssm
-        mixer, for which the tokens past it must be exact no-ops; a
-        padded KV row needs nothing (it stays causally invisible until
-        the decode step at its position overwrites it).  A cache that
-        holds a ``"page_table"`` routes every layer's KV through it."""
+        """``valid_len`` (chunked prefill: a host int or a device scalar)
+        reaches the ssm mixer, for which the tokens past it must be exact
+        no-ops; a padded KV row needs nothing (it stays causally invisible
+        until the decode step at its position overwrites it).  A cache
+        that holds a ``"page_table"`` routes every layer's KV through
+        it."""
         cfg = self.cfg
         blocks = params["blocks"][cfg.family]
         caches = cache["blocks"][cfg.family] if cache is not None else None
@@ -233,7 +234,8 @@ class TorchModel:
         x = self._run_blocks(params, x, positions=positions, cache=cache, t=0)
         return self._logits(params, x[:, -1:]), cache
 
-    def prefill_chunk(self, params, inputs, cache, t0: int, valid_len: int):
+    def prefill_chunk(self, params, inputs, cache,
+                      t0: int | torch.Tensor, valid_len: int | torch.Tensor):
         """Incremental prefill of one fixed-size chunk at absolute start
         position ``t0``: ``inputs["tokens"]`` is (B, C) with only the
         first ``valid_len`` tokens real.  The padded tail writes KV rows
@@ -241,16 +243,29 @@ class TorchModel:
         position overwrites them, and leaves the conv and SSD state as of
         the last real token, so chaining chunks equals one
         :meth:`prefill` (for the ssm family up to the scan's fp32
-        summation order).  ``t0`` and ``valid_len`` are host ints (no
-        device sync to index).  -> (logits (B,V) at the last valid token,
+        summation order).
+
+        ``t0`` and ``valid_len`` are host ints or device scalars (0-d or
+        (B,) int tensors, as the reference traces them): with tensors
+        nothing reads their values on the host, so one captured call
+        serves every chunk of its size, and the result is bit-identical
+        to the host-int call.  -> (logits (B,V) at the last valid token,
         cache)."""
         toks = inputs["tokens"]
         b, s = toks.shape
+        if isinstance(t0, torch.Tensor):
+            t0 = t0.to(device=toks.device,
+                       dtype=torch.int64).reshape(-1).expand(b)
         positions = self._default_positions(b, s, t0, toks.device)
         x = L.embed(params["embed"], toks, self.cfg)
         x = self._run_blocks(params, x, positions=positions, cache=cache,
                              t=t0, valid_len=valid_len)
-        return self._logits(params, x[:, valid_len - 1:valid_len]), cache
+        if isinstance(valid_len, torch.Tensor):
+            last = valid_len.to(device=x.device, dtype=torch.int64) - 1
+            x = x.gather(1, last.reshape(-1, 1, 1).expand(b, 1, x.shape[2]))
+        else:
+            x = x[:, valid_len - 1:valid_len]
+        return self._logits(params, x), cache
 
     def decode_step(self, params, inputs, cache, t, live=None):
         """One-token decode at absolute position ``t`` (an int or a (B,)

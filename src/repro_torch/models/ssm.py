@@ -42,16 +42,25 @@ def ssm_specs(cfg: ModelConfig, ssm: SSMConfig) -> dict:
     }
 
 
+def _per_row_column(v):
+    """A host int as it is, a 0-d or (B,) tensor as a (1 or B, 1) int64
+    column: either broadcasts against a row of positions."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64).reshape(-1, 1)
+    return v
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   state: torch.Tensor | None = None,
-                  valid_len: int | None = None,
+                  valid_len: int | torch.Tensor | None = None,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv.  x (B,S,C), w (W,C).  state (B,W-1,C) holds
     the trailing context from previous steps.  Returns (y, new_state).
 
-    ``valid_len`` (a host int): only the first ``valid_len`` tokens of
-    ``x`` are real, and the returned state is the trailing context as of
-    the last of them, so bucket padding never leaks into later chunks or
+    ``valid_len`` (a host int, or a 0-d or (B,) device scalar that is
+    never read on the host): only the first ``valid_len`` tokens of ``x``
+    are real, and the returned state is the trailing context as of the
+    last of them, so bucket padding never leaks into later chunks or
     decode steps.  (Conv outputs at padded positions are garbage; callers
     discard them.)"""
     width = w.shape[0]
@@ -69,7 +78,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     else:
         # xp index of real token i is (W-1)+i, so the W-1 entries that
         # precede real position valid_len start at xp index valid_len
-        new_state = xp[:, valid_len:valid_len + width - 1, :]
+        idx = (_per_row_column(valid_len)
+               + torch.arange(width - 1, device=x.device))
+        idx = idx.expand(x.shape[0], width - 1)[..., None]
+        new_state = xp.gather(1, idx.expand(-1, -1, xp.shape[2]))
     return y, new_state
 
 
@@ -96,9 +108,13 @@ def _split_proj(zxbcdt: torch.Tensor, ssm: SSMConfig):
 
 
 def _expand_groups(t: torch.Tensor, nh: int) -> torch.Tensor:
-    """(B,S,G,N) -> (B,S,H,N) by repeating each group H/G times."""
-    rep = nh // t.shape[2]
-    return torch.repeat_interleave(t, rep, dim=2) if rep > 1 else t
+    """(B,S,G,N) -> (B,S,H,N) by repeating each group H/G times (head h
+    reads group h // (H/G)); a broadcast and a copy, no host-side count."""
+    b, s, g, n = t.shape
+    rep = nh // g
+    if rep == 1:
+        return t
+    return t[:, :, :, None, :].expand(b, s, g, rep, n).reshape(b, s, nh, n)
 
 
 def _softplus(v: torch.Tensor) -> torch.Tensor:
@@ -120,15 +136,17 @@ def _write_state(dst: torch.Tensor, new: torch.Tensor,
 
 
 def mamba2_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                 cache: dict | None = None, valid_len: int | None = None,
+                 cache: dict | None = None,
+                 valid_len: int | torch.Tensor | None = None,
                  live: torch.Tensor | None = None,
                  use_kernel_hook: bool = True) -> torch.Tensor:
     """Full Mamba-2 mixer.  cache = {"conv": (B,W-1,C), "ssd":
     (B,H,P,N)}, updated in place (rows where ``live`` is False keep
     theirs).
 
-    ``valid_len`` (a host int, chunked-prefill padding): the tokens past
-    it get dt = 0, which makes them exact no-ops for the SSD state (decay
+    ``valid_len`` (chunked-prefill padding: a host int, or a 0-d or (B,)
+    device scalar that is never read on the host): the tokens past it get
+    dt = 0, which makes them exact no-ops for the SSD state (decay
     exp(0*a) = 1, input contribution 0), and the conv state is taken as of
     the last real token."""
     ssm = cfg.ssm
@@ -149,7 +167,8 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     c_mat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
     dtv = _softplus(dt.float() + params["dt_bias"])
     if valid_len is not None:
-        dtv[:, valid_len:] = 0.0
+        real = torch.arange(s, device=x.device) < _per_row_column(valid_len)
+        dtv = torch.where(real[..., None], dtv, 0.0)
     a = -torch.exp(params["A_log"])
 
     if cache is not None and s == 1:

@@ -31,6 +31,17 @@ table is :data:`H100_LEVEL_TILES`.
 Entry points run on the card: ``device=None`` means ``"cuda"``, and an
 engine raises ``RuntimeError`` when CUDA is absent unless the caller asks
 for ``device="cpu"``.
+
+CUDA graphs (``cuda_graphs=True``, the default): on the card every call
+of a version-cache entry — a fused quantum per K-bucket, a prefill chunk
+per bucket, the one-step decode, a monolithic prefill per prompt length
+— is a CUDA graph, captured at its first use (``warmup()`` captures them
+all) and replayed after.  A step copies its few host values into the
+engine's static inputs (:class:`StepInputs`), copies a prefilling slot's
+row into the static prefill row, and replays.  ``cuda_graphs=False``
+runs the same calls and buffers eagerly (the reference's
+``jax.disable_jit``); on the CPU the calls always run eagerly, through
+the same static buffers.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models.model import Model, cache_batch_axis
 from repro_torch.models.params import tree_map_with_path
 from repro_torch.serving.paging import TRASH_PAGE, PagePool
-from repro_torch.serving.version_cache import VersionCache
+from repro_torch.serving.version_cache import CudaGraphs, VersionCache
 
 # Fused-quantum sizes: a quantum of k decode steps runs as the smallest
 # bucket >= k (rows past their budget freeze on device).
@@ -106,6 +117,64 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class StepInputs:
+    """The host values of one step on their way to the static inputs that
+    every graph of an engine reads: one persistent int64 device buffer
+    holding a prefill chunk's start ``t0`` and ``valid`` length, the rows'
+    positions ``pos`` and step budgets ``n_left`` (B,) and the tokens
+    (up to ``max_len``), written by one non-blocking copy per step from a
+    persistent pinned staging buffer.
+
+    The staging buffer has ``DEPTH`` rows, used in turn, and a row is
+    rewritten only after its previous copy has run (an event per row): the
+    host may run up to ``DEPTH`` steps ahead of the device, as it does
+    through a run of prefill chunks, which do not sync."""
+
+    DEPTH = 4
+
+    def __init__(self, slots: int, max_len: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.slots = slots
+        self._tok = 2 + 2 * slots
+        width = self._tok + max(max_len, slots)
+        self.dev = torch.zeros(width, dtype=torch.int64, device=device)
+        self._host = torch.zeros((self.DEPTH, width), dtype=torch.int64,
+                                 pin_memory=self.cuda)
+        self._events = ([torch.cuda.Event() for _ in range(self.DEPTH)]
+                        if self.cuda else None)
+        self._next = 0
+        self.t0 = self.dev[0]
+        self.valid = self.dev[1]
+        self.pos = self.dev[2:2 + slots]
+        self.n_left = self.dev[2 + slots:self._tok]
+        self.tokens = self.dev[self._tok:self._tok + slots]
+
+    def prompt(self, n: int) -> torch.Tensor:
+        """The (1, n) static token input of a prefill of n tokens."""
+        return self.dev[self._tok:self._tok + n].view(1, n)
+
+    def push(self, tokens, *, t0: int = 0, valid: int = 0, pos=None,
+             n_left=None) -> None:
+        """Stage one step's values and copy them to the device buffer on
+        the current stream.  Fields not given are overwritten with stale
+        values: every call pushes each field it reads."""
+        i = self._next
+        self._next = (i + 1) % self.DEPTH
+        if self.cuda:
+            self._events[i].synchronize()   # no-op until first recorded
+        row = self._host[i].numpy()
+        b, n = self.slots, self._tok + len(tokens)
+        row[0], row[1] = t0, valid
+        if pos is not None:
+            row[2:2 + b] = pos
+        if n_left is not None:
+            row[2 + b:self._tok] = n_left
+        row[self._tok:n] = tokens
+        self.dev[:n].copy_(self._host[i, :n], non_blocking=True)
+        if self.cuda:
+            self._events[i].record()
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -137,8 +206,11 @@ class PrefillQuantum:
 @dataclasses.dataclass
 class QuantumHandle:
     """An in-flight fused dispatch quantum: ``block`` is still an
-    on-device (possibly not yet computed) tensor; ``finish_quantum``
-    performs the single device->host sync and the bookkeeping."""
+    on-device (possibly not yet computed) tensor, the engine's own copy
+    (a graph's output buffer is rewritten by later replays, so it is
+    copied out on the stream right after the replay);
+    ``finish_quantum`` performs the single device->host sync and the
+    bookkeeping."""
     block: torch.Tensor            # (K, B) on-device token block
     n_left: np.ndarray             # (B,) per-row steps actually budgeted
     steps: int                     # quantum length (max over rows)
@@ -158,7 +230,11 @@ class TorchServingEngine:
                  prefill_chunk_len: int = PREFILL_CHUNK_LEN,
                  page_size: int | None = None, n_pages: int | None = None,
                  page_reserve: str = "worst", prefix_sharing: bool = True,
-                 ladder=None, device=None):
+                 ladder=None, device=None, cuda_graphs: bool = True):
+        """``cuda_graphs=False`` runs every entry point eagerly on the
+        card (the same static buffers, no capture): the eager side of an
+        eager/graph comparison.  On the CPU nothing is captured either
+        way."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg)
@@ -229,6 +305,12 @@ class TorchServingEngine:
         # so a reused slot cannot leak the previous tenant's KV.  A paged
         # engine prefills into a dense row too and scatters it into pages
         self._empty_row = self.model.init_cache(1, max_len, self.device)
+        # static inputs of every graph: the step's host values, and the
+        # prefill row every chunk and monolithic prefill runs in (a slot's
+        # row is copied in before and out after; chunks of different
+        # slots interleave)
+        self._inputs = StepInputs(batch_slots, max_len, self.device)
+        self._row = self.model.init_cache(1, max_len, self.device)
         # tiles: an autotuned level ladder (the ``ladder`` argument — a
         # LadderSpec or its raw levels list — else the process-global
         # ladder, snapshotted now), else H100_LEVEL_TILES
@@ -258,7 +340,9 @@ class TorchServingEngine:
         self.host_syncs = 0
         self.tokens_decoded = 0
         self.quantum_calls = 0
-        self.version_cache = VersionCache(self.model)
+        self.version_cache = VersionCache(
+            self.model, graphs=CudaGraphs(self.device)
+            if self.device.type == "cuda" and cuda_graphs else None)
         # occupancy telemetry (peak valid tokens, peak occupied slots)
         self.peak_cache_tokens = 0
         self.peak_active_slots = 0
@@ -301,12 +385,14 @@ class TorchServingEngine:
     def warmup(self, prompt_lens: tuple[int, ...] = (),
                levels: list[float] | None = None,
                quantum_buckets: tuple[int, ...] | None = None) -> dict:
-        """Build and run the entry points of every interference level
-        (default: the full grid) so later level switches and steps build
-        nothing: one decode per version, every fused K-bucket, every
-        prefill-chunk bucket, and a monolithic prefill per length in
-        ``prompt_lens``.  Rows of resident requests are restored after
-        the warm decodes.  Returns the version-cache stats."""
+        """Build (capture, on the card) and run the entry points of every
+        interference level (default: the full grid) so later level
+        switches and steps build nothing: one decode per version, every
+        fused K-bucket, every prefill-chunk bucket, and a monolithic
+        prefill per length in ``prompt_lens``.  The warm quanta freeze
+        every row (``n_left`` 0), the warm decodes write position 0 of
+        every slot, and rows of resident requests are restored after.
+        Returns the version-cache stats."""
         if levels is None:
             levels = [cm.grid_point(i) for i in range(cm.NUM_LEVELS)]
         buckets = (self.quantum_buckets if quantum_buckets is None
@@ -319,31 +405,31 @@ class TorchServingEngine:
         if self.paged:
             # aim every slot at the trash page while the warm decodes run
             # at position 0: their writes land there, never in live pages
-            self.cache["page_table"] = torch.zeros_like(
-                self.cache["page_table"])
+            self.cache["page_table"].zero_()
             self._table_dirty = True
-        toks = torch.zeros(self.slots, dtype=torch.int64, device=self.device)
-        pos = torch.zeros(self.slots, dtype=torch.int64, device=self.device)
+        inp = self._inputs
+        zeros = np.zeros(self.slots, np.int64)
         tile_tables = [self._active_tiles if self._active_tiles is not None
                        else {}]
         tile_tables += [self.tiles_for_level(lv) for lv in levels]
         for entry in self.version_cache.warmup(tile_tables):
-            _, self.cache = entry.decode(self.params, {"tokens": toks},
-                                         self.cache, pos)
+            inp.push(zeros, pos=zeros, n_left=zeros)
+            # the calls update the cache in place and return it: adopting
+            # it rebinds self.cache to the same tensors
+            _, self.cache = entry.decode(self.params, {"tokens": inp.tokens},
+                                         self.cache, inp.pos)
             for k in buckets:
-                self.version_cache.quantum(entry, k, self.slots)
+                qfn = self.version_cache.quantum(entry, k, self.slots)
+                _, self.cache, _ = qfn(self.params, inp.tokens, self.cache,
+                                       inp.pos, inp.n_left)
             if self.chunked_prefill:
                 for cb in self.prefill_buckets:
-                    entry.prefill_chunk(
-                        self.params, torch.zeros((1, cb), dtype=torch.int64,
-                                                 device=self.device),
-                        self._fresh_row(), 0, cb)
+                    inp.push(np.zeros(cb, np.int64), valid=cb)
+                    entry.prefill_chunk(self.params, inp.prompt(cb),
+                                        self._row, inp.t0, inp.valid)
             for plen in prompt_lens:
-                entry.prefill(
-                    self.params, torch.zeros((1, int(plen)),
-                                             dtype=torch.int64,
-                                             device=self.device),
-                    self._fresh_row())
+                inp.push(np.zeros(int(plen), np.int64))
+                entry.prefill(self.params, inp.prompt(int(plen)), self._row)
         for i, row in live_rows:
             self._write_row(i, row)
         self._sync_table()       # restore the real table from the mirror
@@ -362,6 +448,12 @@ class TorchServingEngine:
 
     def _fresh_row(self):
         return tree_map_with_path(lambda _, a: a.clone(), self._empty_row)
+
+    @staticmethod
+    def _copy_row(dst, src) -> None:
+        """Copy one batch-1 row cache over another, leaf by leaf, in
+        place."""
+        tree_map_with_path(lambda _, d, s: d.copy_(s), dst, src)
 
     def _slice_row(self, slot: int):
         """A copy of one slot's cache as a batch-1 row."""
@@ -428,11 +520,15 @@ class TorchServingEngine:
     # Page accounting (paged engines only)
     # ------------------------------------------------------------------
     def _sync_table(self) -> None:
-        """Push the host page-table mirror to the device when stale: a
-        copy of the mirror (the host edits it right after) staged through
-        pinned memory, without blocking the host."""
+        """Push the host page-table mirror to the device when stale, into
+        the one table tensor every paged graph reads, without blocking the
+        host: on the card through a pinned copy of the mirror (the host
+        edits the mirror right after)."""
         if self.paged and self._table_dirty:
-            self.cache["page_table"] = self._to_device(self._page_table.copy())
+            table = torch.from_numpy(self._page_table)
+            if self.device.type == "cuda":
+                table = table.pin_memory()
+            self.cache["page_table"].copy_(table, non_blocking=True)
             self._table_dirty = False
 
     def _alloc_page(self, slot: int) -> int | None:
@@ -805,12 +901,14 @@ class TorchServingEngine:
                 while not req.output:
                     self.prefill_step()
             return True
-        toks = self._to_device(prompt.astype(np.int64))[None, :]
-        logits, row_cache = self._prefill_one(self.params, toks,
-                                              self._fresh_row())
-        self._finish_row(slot, row_cache, req)
+        self._copy_row(self._row, self._empty_row)
+        self._inputs.push(prompt.astype(np.int64))
+        logits, _ = self._prefill_one(self.params, self._inputs.prompt(n),
+                                      self._row)
+        first = torch.argmax(logits[0])   # before another graph replays
+        self._finish_row(slot, self._row, req)
         # the one device->host sync of a monolithic admission
-        first = int(torch.argmax(logits[0]))
+        first = int(first)
         self.host_syncs += 1
         self.tokens_decoded += 1
         self.prefill_tokens += n
@@ -841,18 +939,23 @@ class TorchServingEngine:
         toks[:valid] = st.req.prompt[st.done:st.done + valid]
         traces0 = self.version_cache.traces
         t0 = time.perf_counter()
-        logits, st.row_cache = self._prefill_chunk(
-            self.params, self._to_device(toks)[None], st.row_cache, st.done,
-            valid)
+        inp = self._inputs
+        self._copy_row(self._row, st.row_cache)
+        inp.push(toks, t0=st.done, valid=valid)
+        logits, _ = self._prefill_chunk(self.params, inp.prompt(c),
+                                        self._row, inp.t0, inp.valid)
         st.done += valid
         self.prefill_chunks += 1
         self.prefill_tokens += valid
         self.prefill_pad_tokens += c - valid
         finished = not st.schedule
-        if finished:
-            self._finish_row(slot, st.row_cache, st.req)
+        if not finished:
+            self._copy_row(st.row_cache, self._row)
+        else:
+            first = torch.argmax(logits[0])   # before another graph replays
+            self._finish_row(slot, self._row, st.req)
             # the one device->host sync of an admission (finishing chunk)
-            first = int(torch.argmax(logits[0]))
+            first = int(first)
             if traces0 == self.version_cache.traces:
                 self.counter_bank.observe(
                     "prefill", _next_pow2(max(st.done, 1)),
@@ -911,9 +1014,10 @@ class TorchServingEngine:
             # admission writes a whole prefilled row over them
             traces0 = self.version_cache.traces
             t0 = time.perf_counter()
-            inp = self._to_device(np.stack([toks, self.slot_pos]))
+            inp = self._inputs
+            inp.push(toks, pos=self.slot_pos)
             logits, self.cache = self._decode(
-                self.params, {"tokens": inp[0]}, self.cache, inp[1])
+                self.params, {"tokens": inp.tokens}, self.cache, inp.pos)
             n_left = np.minimum(n_left, 1)
             return QuantumHandle(block=torch.argmax(logits, dim=-1)[None],
                                  n_left=n_left, steps=1, active=active,
@@ -926,11 +1030,12 @@ class TorchServingEngine:
         qfn = self.version_cache.quantum(self._entry, bucket, self.slots)
         traces0 = self.version_cache.traces
         t0 = time.perf_counter()
-        inp = self._to_device(np.stack([toks, self.slot_pos, n_left]))
-        block, self.cache, _ = qfn(self.params, inp[0], self.cache, inp[1],
-                                   inp[2])
+        inp = self._inputs
+        inp.push(toks, pos=self.slot_pos, n_left=n_left)
+        block, self.cache, _ = qfn(self.params, inp.tokens, self.cache,
+                                   inp.pos, inp.n_left)
         self.quantum_calls += 1
-        return QuantumHandle(block=block, n_left=n_left, steps=steps,
+        return QuantumHandle(block=block.clone(), n_left=n_left, steps=steps,
                              active=active, t0=t0, traces0=traces0,
                              bucket=bucket, tiles=self._entry.key)
 

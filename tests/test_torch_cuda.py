@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_paged as fap  # noqa: E402
@@ -503,3 +504,101 @@ def test_paged_engine_on_the_card_goes_through_the_paged_kernel(
     stats = engine.page_stats
     assert stats["used_pages"] == 0 and stats["committed"] == 0
     assert stats["shared_hits"] == 2 and stats["cow_copies"] == 1, stats
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the version cache's calls captured and replayed
+# ---------------------------------------------------------------------------
+# (configuration, engine options, prompt lengths, max_len); the paged
+# prompts make requests 2 and 1 share a full page and a partial tail
+GRAPH_CASES = {
+    "dense": ("gemma-2b", {}, (3, 19, 12), 32),
+    "paged": ("gemma-2b", {"page_size": 8}, (3, 19, 12), 32),
+    "mamba2": ("mamba2-780m", {}, (3, 39, 17), 64),
+}
+
+
+def _graph_engines(case):
+    """An eager engine and a graphed one on the same weights, both warm."""
+    name, kw, lens, max_len = GRAPH_CASES[case]
+    cfg = get_reduced_config(name)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    prompt = np.arange(1, 41, dtype=np.int32) * 7 % cfg.vocab_size
+    engines = [ServingEngine(cfg, params, batch_slots=2, max_len=max_len,
+                             cuda_graphs=graphs, **kw)
+               for graphs in (False, True)]
+    for eng in engines:
+        eng.warmup()
+    return engines, [prompt[:n] for n in lens]
+
+
+def _launches():
+    return [sum(c.values()) for c in
+            (bm.LAUNCHES, fa.LAUNCHES, fap.LAUNCHES, ssd.LAUNCHES)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_engine_serves_the_eager_engines_streams(cuda_device, case):
+    """The same traffic on the eager and the graphed engine: identical
+    token streams and identical kernel launch counts (a replay adds what
+    its capture recorded), and the graphed serve captures nothing."""
+    engines, prompts = _graph_engines(case)
+    results = []
+    for eng in engines:
+        vc = eng.version_cache
+        traces0, before = vc.traces, _launches()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        assert eng.admit_request(reqs[1], drain=True)
+        assert eng.admit_request(reqs[2], drain=True)
+        eng.run_to_completion([reqs[0]])
+        assert all(r.done and len(r.output) == 7 for r in reqs)
+        assert vc.traces == traces0
+        results.append(([r.output for r in reqs],
+                        [a - b for a, b in zip(_launches(), before)]))
+    assert results[0] == results[1]
+    graphed = engines[1].version_cache._calls.values()
+    assert all(c.graph is not None for c in graphed)
+    assert sum(c.replays for c in graphed) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_replayed_quantum_leaves_the_cache_bit_identical(cuda_device, case):
+    """One 4-step quantum on two rows, replayed and eager, from the same
+    state: the same token block and the same cache, bit for bit."""
+    engines, prompts = _graph_engines(case)
+    blocks = []
+    for eng in engines:
+        for i, p in enumerate(prompts[1:]):
+            assert eng.admit_request(Request(rid=i, prompt=p,
+                                             max_new_tokens=8), drain=True)
+        handle = eng.begin_quantum(4)
+        blocks.append(handle.block.clone())
+        eng.finish_quantum(handle)
+    assert torch.equal(blocks[0], blocks[1])
+    for path in ("k", "v", "conv", "ssd"):
+        leaves = [e.cache["blocks"][e.cfg.family].get(path) for e in engines]
+        if leaves[0] is not None:
+            assert torch.equal(leaves[0], leaves[1]), path
+
+
+@pytest.mark.cuda
+def test_no_capture_after_warmup_across_a_level_sweep(cuda_device):
+    """After ``warmup()`` every quantum, decode step and prefill chunk of
+    a full level sweep is a replay of a graph captured there."""
+    (_, eng), prompts = _graph_engines("dense")
+    vc = eng.version_cache
+    traces0, misses0, calls0 = vc.traces, vc.misses, len(vc._calls)
+    replays0 = sum(c.replays for c in vc._calls.values())
+    for i in range(cm.NUM_LEVELS):
+        eng.set_interference_level(cm.grid_point(i))
+        assert eng.admit_request(Request(rid=i, prompt=prompts[i % 3],
+                                         max_new_tokens=3), drain=True)
+        eng.step()
+        eng.step_quantum(1 << (i % 5))
+        eng.run_to_completion([])
+    assert (vc.traces, vc.misses, len(vc._calls)) == \
+        (traces0, misses0, calls0)
+    assert sum(c.replays for c in vc._calls.values()) > replays0
