@@ -43,7 +43,18 @@ Phases, each fatal on failure:
      quantum and of a 16-token prefill chunk give wall, device busy
      (torch.profiler), idle share and decode tokens/s; and a host profile
      of one eager quantum (cProfile, and torch.profiler's CPU activity)
-     says where the host's time goes;
+     says where the host's time goes.  Then the online runtime on the
+     same warm engines: ``TorchOnlineRuntime`` with ``VeltairPolicy`` in
+     the loop serves RT_QUERIES requests of two paper tenants (an
+     interactive and a batch tier, prompts of 5-250 tokens) in virtual
+     time on the graphed and on the eager engine (identical schedule and
+     level traces, streams and metrics, more than one level, an
+     interactive prefill chunk between a batch request's decode quanta,
+     nothing captured, one host sync per decode quantum and per finished
+     prompt, exact launch counts from the trace), then in wall-clock mode
+     with measured counters (latencies, wall per quantum by kind, the
+     runtime's own host time per quantum, and the device's idle share
+     from a profiled rerun);
   4. profile: one 8-step decode quantum (a graph replay) under
      torch.profiler, device time by kernel and the device's idle share;
   5. whole-model check: first-prefill-chunk and first-decode logits
@@ -65,7 +76,11 @@ Phases, each fatal on failure:
      (level sweep, decode-quantum pairs), a profile of one paged decode
      quantum, and a paged whole-model check (decode steps on a shuffled
      page table through the kernels against the plain versions and
-     against the dense cache);
+     against the dense cache); then the online runtime on a paged engine
+     of RT_PAGES pages with worst-case reservation under an admission
+     controller, in virtual time (admissions deferred on pages, exact
+     launches, an empty pool) and in wall-clock mode, and the SLO
+     scheduler's pick clamped to one step by a full pool;
   8. times at the serve's shapes: kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
@@ -81,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import gc
 import itertools
 import json
@@ -1664,7 +1680,7 @@ def check_paged_serve(engine, out, report) -> None:
 
 
 def serve_paged(cfg, params, prompts, dense_streams, dev, report,
-                seed) -> tuple[dict, dict]:
+                seed, card) -> tuple[dict, dict]:
     """Serve the dense serve's prompts again on a paged engine
     (``page_size=PAGE_SIZE``, the default 128 usable pages), with two
     requests that share the PAGED_BASE prompt's pages, then profile one
@@ -1722,6 +1738,8 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
            "time " + ("not measured" if share is None else f"{share:.4f}"))
     del engine, eager
     gc.collect()
+    out["runtime"] = serve_runtime_paged(cfg, params, dev, counters, report,
+                                         seed, card)
     return out, prof
 
 
@@ -1736,6 +1754,477 @@ def same_streams(what, graphed, eager, report) -> None:
            "call; median quantum "
            f"{graphed['quantum_ms_median']:.2f} ms with graphs, "
            f"{eager['quantum_ms_median']:.2f} ms eager")
+
+
+# ---------------------------------------------------------------------------
+# The online runtime (TorchOnlineRuntime with VeltairPolicy in the loop)
+
+RT_TENANTS = ("resnet50", "googlenet")
+RT_TIERS = {"resnet50": "interactive", "googlenet": "batch"}
+RT_QUERIES = 32
+# offered load (Gamma-modulated, burstiness 4): arrivals keep coming while
+# the first requests decode, so interactive prefills meet batch decodes,
+# and all four slots fill
+RT_QPS = 80.0
+# the runtime's paged engine: two worst-case requests' pages (282 tokens,
+# 18 pages of 16 each), so page commitments defer admissions while slots
+# are free.  Worst-case reservation cannot stall a row; with prompt-only
+# reservation a pool that binds lets this workload's rows all wait on a
+# page at once (the reference does the same), so the clamp of a decode
+# quantum by free pages is shown on a state built for it
+# (``page_clamp_check``)
+RT_PAGES = 36
+
+
+def runtime_workload(seed: int):
+    """The runtime phases' traffic: Gamma-modulated arrivals of two paper
+    tenants (an interactive and a batch tier), prompts of 5-250 tokens,
+    MAX_NEW new tokens each, offered faster than four slots drain."""
+    from repro_torch.serving.runtime import Workload
+    return Workload.bursty(list(RT_TENANTS), RT_QPS, RT_QUERIES,
+                           prompt_len=250, prompt_len_spread=245,
+                           max_new_tokens=MAX_NEW, seed=seed,
+                           tiers=RT_TIERS)
+
+
+class EngineCalls:
+    """Times the engine's device-facing calls made by a runtime serve
+    (admission, version switch, prefill chunk, quantum dispatch and
+    finish: instance attributes that shadow the methods), records the
+    K-bucket of every dispatched decode quantum and, on a paged engine,
+    counts decode quanta clamped by free pages.  ``close()`` restores the
+    engine."""
+
+    TIMED = ("admit_request", "set_interference_level", "prefill_step",
+             "begin_quantum", "finish_quantum")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.inside_s = 0.0
+        self.buckets: list[int] = []
+        self.clamps = 0
+        self.max_active = 0
+        for name in self.TIMED:
+            setattr(engine, name, self._timed(name, getattr(engine, name)))
+        if engine.paged:
+            headroom = engine.decode_k_headroom
+
+            def clamped(k):
+                got = headroom(k)
+                self.clamps += got < k
+                return got
+            engine.decode_k_headroom = clamped
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            self.max_active = max(self.max_active, self.engine.active_slots)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.inside_s += time.perf_counter() - t0
+            if name == "begin_quantum" and out is not None:
+                self.buckets.append(out.bucket)
+            return out
+        return call
+
+    def close(self) -> None:
+        for name in (*self.TIMED, "decode_k_headroom"):
+            self.engine.__dict__.pop(name, None)
+
+
+def page_deferrals(admission) -> list:
+    """Wrap an AdmissionController's decision (on the instance) to record
+    deferrals on pages: a slot is free but the request's page commitment
+    exceeds the uncommitted free pages."""
+    decide = admission.decide
+    seen: list = []
+
+    def counted(**kw):
+        d = decide(**kw)
+        if d == "defer" and kw["slot_free"] and kw["pages_free"] is not None \
+                and kw["pages_needed"] > kw["pages_free"]:
+            seen.append((kw["entry"].rid, kw["pages_needed"],
+                         kw["pages_free"]))
+        return d
+    admission.decide = counted
+    return seen
+
+
+def cuda_sync(engine) -> None:
+    import torch
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def runtime_serve(engine, seed, counters, *, wall_clock=False,
+                  admission=False, profile=False) -> dict:
+    """One serve of ``runtime_workload(seed)`` through TorchOnlineRuntime
+    with VeltairPolicy(CPU_3990X) over the paper tenants' plans: oracle
+    counters in virtual time, measured counters in wall-clock mode.  The
+    launch counters are zeroed just before the serve and read just after.
+    ``profile`` runs the serve under torch.profiler and adds the device's
+    busy time."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.scheduler import VeltairPolicy
+    from repro_torch.serving.runtime import OnlineRuntime
+    from repro_torch.serving.slo import AdmissionController
+    from repro_torch.serving.tenants import build_paper_plans
+
+    plans = build_paper_plans(list(RT_TENANTS), cm.CPU_3990X)
+    adm = AdmissionController() if admission else None
+    deferred_on_pages = page_deferrals(adm) if adm is not None else []
+    rt = OnlineRuntime(engine, VeltairPolicy(cm.CPU_3990X), plans,
+                       cm.CPU_3990X, wall_clock=wall_clock,
+                       counter_source="measured" if wall_clock else "oracle",
+                       admission=adm)
+    wl = runtime_workload(seed)
+    calls = EngineCalls(engine)
+    traces0, syncs0 = engine.version_cache.traces, engine.host_syncs
+    busy_ms = None
+    cuda_sync(engine)
+    for c in counters.values():
+        c.clear()
+    t0 = time.perf_counter()
+    try:
+        if profile and engine.device.type == "cuda":
+            import torch
+            from torch.profiler import ProfilerActivity, profile as tprof
+            # the card's activity only: a whole serve is ~10^6 events, and
+            # the host ops would double them for nothing the share needs
+            with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+                metrics = rt.serve(wl)
+                cuda_sync(engine)
+                wall_s = time.perf_counter() - t0
+            busy_ms = device_busy_ms(prof)
+        else:
+            metrics = rt.serve(wl)
+            cuda_sync(engine)
+            wall_s = time.perf_counter() - t0
+    finally:
+        calls.close()
+    trace_s = time.perf_counter() - t0 - wall_s
+    launches = {name: sum(c.values()) for name, c in counters.items()}
+    chunks = [size for kind, size, _, _ in rt.quantum_log
+              if kind == "prefill"]
+    return {"runtime": rt, "metrics": metrics, "workload": wl,
+            "wall_s": wall_s, "inside_s": calls.inside_s,
+            "buckets": calls.buckets, "chunks": chunks,
+            "clamps": calls.clamps, "deferred_on_pages": deferred_on_pages,
+            "max_active": calls.max_active,
+            "builds": engine.version_cache.traces - traces0,
+            "host_syncs": engine.host_syncs - syncs0,
+            "launches": launches, "busy_ms": busy_ms, "trace_s": trace_s}
+
+
+def device_busy_ms(prof) -> float:
+    """The card's busy time in a torch.profiler trace: the summed
+    durations of its device events, read from the profiler's raw results
+    (building its Python event tree for the ~10^6 events of a whole serve
+    takes minutes), else from its events."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is not None:
+        return sum(e.duration_ns() for e in raw.events()
+                   if e.device_type() == cuda) / 1e6
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda) / 1e3
+
+
+def check_runtime_serve(what, run, expected, report) -> dict:
+    """The checks every runtime serve must pass: every arrival served or
+    shed, nothing built, one host sync per decode quantum and per
+    finished prompt, and launches equal to the forward passes the serve
+    ran (each decode quantum runs its K-bucket)."""
+    rt, m, wl = run["runtime"], run["metrics"], run["workload"]
+    decodes = [ev for ev in rt.sched_trace if ev[0] == "decode"]
+    require(m.n_queries + m.shed_queries == wl.n_queries and
+            len(rt.outputs) == m.n_queries, f"{what}: {m.n_queries} served "
+            f"+ {m.shed_queries} shed of {wl.n_queries}")
+    require(all(len(toks) == wl.max_new_tokens + 1
+                for toks in rt.outputs.values()),
+            f"{what}: a request ended short")
+    require(run["builds"] == 0, f"{what}: {run['builds']} builds (captures) "
+            "during the serve")
+    require(len(decodes) == len(run["buckets"]),
+            f"{what}: {len(decodes)} decode quanta traced, "
+            f"{len(run['buckets'])} dispatched")
+    require(run["host_syncs"] == len(decodes) + m.n_queries,
+            f"{what}: {run['host_syncs']} host syncs for {len(decodes)} "
+            f"decode quanta + {m.n_queries} finishing prefill chunks")
+    want, why = expected(sum(run["buckets"]), run["chunks"])
+    for name, n in run["launches"].items():
+        require(n == want[name], f"{what}: {name} {n} launches, expected "
+                f"{want[name]} ({why[name]})")
+    levels = collections.Counter(cm_idx(x) for x in rt.level_trace)
+    out = {"queries": m.n_queries, "shed": m.shed_queries,
+           "deferred": m.deferred_queries, "decode_quanta": len(decodes),
+           "decode_steps": sum(run["buckets"]),
+           "prefill_chunks": len(run["chunks"]),
+           "host_syncs": run["host_syncs"], "launches": run["launches"],
+           "expected_launches": want, "levels": dict(sorted(levels.items())),
+           "counter_sources": dict(rt.counter_sources),
+           "clamped_quanta": run["clamps"],
+           "deferred_on_pages": len({d[0] for d in run["deferred_on_pages"]}),
+           "max_active_slots": run["max_active"],
+           "serve_wall_s": run["wall_s"]}
+    report(f"{what}: {m.n_queries} served, {m.shed_queries} shed, "
+           f"{m.deferred_queries} deferred ({out['deferred_on_pages']} on "
+           f"pages); {len(decodes)} decode quanta ({out['decode_steps']} "
+           f"steps), {out['prefill_chunks']} prefill chunks; "
+           f"{run['host_syncs']} host syncs; 0 captures; levels (grid "
+           f"index: quanta) {out['levels']}; launches " + ", ".join(
+               f"{k} {v} ({why[k]})" for k, v in run["launches"].items()))
+    return out
+
+
+def cm_idx(level: float) -> int:
+    from repro_torch.core import cost_model as cm
+    return cm.level_to_idx(level)
+
+
+def preemptions(rt) -> int:
+    """Interactive prefill chunks scheduled while a batch-tier request
+    was mid-decode (it decoded before the chunk and again after)."""
+    tiers = {}
+    for ev in rt.sched_trace:
+        if ev[0] == "prefill":
+            tiers[ev[1]] = ev[2]
+    seen_decode: dict[int, int] = {}
+    last_decode: dict[int, int] = {}
+    for i, ev in enumerate(rt.sched_trace):
+        if ev[0] == "decode":
+            for rid in ev[1]:
+                seen_decode.setdefault(rid, i)
+                last_decode[rid] = i
+    return sum(1 for i, ev in enumerate(rt.sched_trace)
+               if ev[0] == "prefill" and ev[2] == "interactive" and any(
+                   tiers.get(rid) == "batch" and seen_decode[rid] < i
+                   < last_decode[rid] for rid in seen_decode))
+
+
+def metrics_summary(m) -> dict:
+    out = {k: getattr(m, k) for k in (
+        "n_queries", "qos_rate", "avg_latency_s", "p99_latency_s",
+        "avg_ttft_s", "qps_at_qos", "qps_offered", "conflict_rate",
+        "shed_queries", "deferred_queries", "refit_count",
+        "proxy_rms_error", "peak_cache_tokens", "cache_utilization")}
+    out["per_tier"] = {t: dataclasses.asdict(v)
+                       for t, v in m.per_tier.items()}
+    return out
+
+
+def wall_clock_report(what, run, card, report) -> dict:
+    """What a wall-clock serve measured: the metrics (their latencies are
+    the card's under this host; qos_rate and qps_at_qos hold them to the
+    paper's CPU QoS targets and say nothing about the card), counter
+    sources, the level histogram, the switch time, the wall per quantum
+    by kind, the runtime's own host time per quantum and the device idle
+    share (set by the caller from a profiled rerun)."""
+    rt, m = run["runtime"], run["metrics"]
+    log = rt.quantum_log
+    by_kind: dict[str, list[float]] = collections.defaultdict(list)
+    for kind, size, final, dt in log:
+        key = (f"decode K={size}" if kind == "decode" else
+               "prefill final chunk" if final else "prefill chunk")
+        by_kind[key].append(dt * 1e3)
+    walls = {k: {"n": len(v), "median_ms": statistics.median(v),
+                 "min_ms": min(v), "max_ms": max(v), "sum_ms": sum(v)}
+             for k, v in sorted(by_kind.items())}
+    host_ms = (run["wall_s"] - run["inside_s"]) * 1e3 / max(len(log), 1)
+    out = {"card": card, "metrics": metrics_summary(m),
+           "counter_sources": dict(rt.counter_sources),
+           "levels": dict(sorted(collections.Counter(
+               cm_idx(x) for x in rt.level_trace).items())),
+           "compile_time_s": rt.compile_time_s, "quanta": len(log),
+           "quantum_wall_ms": walls,
+           "serve_wall_s": run["wall_s"],
+           "inside_engine_s": run["inside_s"],
+           "runtime_host_ms_per_quantum": host_ms}
+    tiers = "; ".join(f"{t} n {v.n_queries} avg {v.avg_latency_s * 1e3:.2f} "
+                      f"ms p99 {v.p99_latency_s * 1e3:.2f} ms ttft "
+                      f"{v.avg_ttft_s * 1e3:.2f} ms"
+                      for t, v in m.per_tier.items())
+    report(f"{what} [{card}]: {m.n_queries} served in "
+           f"{run['wall_s']:.3f} s; latency avg {m.avg_latency_s * 1e3:.2f}"
+           f" ms, p99 {m.p99_latency_s * 1e3:.2f} ms, ttft avg "
+           f"{m.avg_ttft_s * 1e3:.2f} ms; per tier: {tiers}; qps_at_qos "
+           f"{m.qps_at_qos:.2f} (against the paper's CPU QoS targets: not "
+           f"a statement about the card); proxy refits {m.refit_count}; "
+           f"counter sources {out['counter_sources']}; levels "
+           f"{out['levels']}; version switches {rt.compile_time_s * 1e3:.3f}"
+           " ms in all")
+    report(f"{what} [{card}]: wall per quantum (ms, median [min, max] x n; "
+           "a decode quantum and a final prefill chunk end in the host sync,"
+           " a non-final chunk's wall is its enqueue): " + "; ".join(
+               f"{k} {v['median_ms']:.3f} [{v['min_ms']:.3f}, "
+               f"{v['max_ms']:.3f}] x{v['n']}" for k, v in walls.items()))
+    report(f"{what} [{card}]: runtime host time {host_ms:.3f} ms per quantum"
+           f" (serve wall {run['wall_s']:.3f} s minus "
+           f"{run['inside_s']:.3f} s inside the engine's calls, over "
+           f"{len(log)} quanta)")
+    return out
+
+
+def idle_share(what, wall_s, run, card, report) -> dict:
+    busy = run["busy_ms"]
+    out = {"unprofiled_wall_s": wall_s, "profiled_wall_s": run["wall_s"],
+           "trace_processing_s": run["trace_s"], "device_busy_ms": busy,
+           "device_idle_share": (max(0.0, 1.0 - busy / (wall_s * 1e3))
+                                 if busy else None)}
+    if not busy:
+        report(f"{what} [{card}]: torch.profiler recorded no device time "
+               "(device idle share not measured)")
+        return out
+    report(f"{what} [{card}]: device busy {busy:.1f} ms under "
+           f"torch.profiler against {wall_s * 1e3:.1f} ms unprofiled wall: "
+           f"idle share {out['device_idle_share']:.4f} (profiled serve wall "
+           f"{run['wall_s'] * 1e3:.1f} ms; reading the trace took "
+           f"{run['trace_s']:.1f} s)")
+    return out
+
+
+def serve_runtime_dense(eager, graphed, cfg, counters, report, seed,
+                        card) -> dict:
+    """Phase 3's runtime serves on the warm engines of the dense serve:
+    the workload in virtual time on the graphed and then the eager
+    engine (identical traces, streams and metrics), then in wall-clock
+    mode with measured counters on the graphed engine, unprofiled and
+    profiled."""
+    expected = dense_launches(cfg)
+    runs, out = {}, {}
+    for name, eng in (("graphs", graphed), ("eager", eager)):
+        runs[name] = runtime_serve(eng, seed, counters)
+        out[name] = check_runtime_serve(
+            f"runtime {cfg.name} virtual time, {name}", runs[name],
+            expected, report)
+    g, e = runs["graphs"]["runtime"], runs["eager"]["runtime"]
+    require(g.sched_trace == e.sched_trace and g.level_trace ==
+            e.level_trace, "runtime: graphed and eager traces differ")
+    require(g.outputs == e.outputs, "runtime: graphed and eager streams "
+            "differ")
+    # (repr: the oracle runs' proxy_rms_error is NaN on both)
+    require(repr(runs["graphs"]["metrics"]) ==
+            repr(runs["eager"]["metrics"]),
+            "runtime: graphed and eager metrics differ")
+    require(len(out["graphs"]["levels"]) > 1, "runtime: one level only")
+    full = runs["graphs"]["max_active"]
+    require(full == BATCH_SLOTS, f"runtime: at most {full} slots occupied")
+    pre = preemptions(g)
+    require(pre > 0, "runtime: no interactive prefill chunk preempted a "
+            "batch decode")
+    out["preemptions"] = pre
+    out["metrics_workload_time"] = metrics_summary(runs["graphs"]["metrics"])
+    report(f"runtime {cfg.name} virtual time: graphed == eager (traces, "
+           f"streams, metrics); {pre} interactive prefill chunks ran "
+           "between a batch request's decode quanta; workload-time "
+           f"metrics (step_dt 1 ms, not the card's): "
+           f"{out['metrics_workload_time']}")
+    wall = runtime_serve(graphed, seed, counters, wall_clock=True)
+    out["wall_clock_checks"] = check_runtime_serve(
+        f"runtime {cfg.name} wall clock, graphs", wall, expected, report)
+    out["wall_clock"] = wall_clock_report(
+        f"runtime {cfg.name} wall clock", wall, card, report)
+    prof = runtime_serve(graphed, seed, counters, wall_clock=True,
+                         profile=True)
+    out["wall_clock"]["idle"] = idle_share(
+        f"runtime {cfg.name} wall clock", wall["wall_s"], prof, card,
+        report)
+    return out
+
+
+def page_clamp_check(engine, seed, report) -> dict:
+    """The SLO scheduler's pick on the paged engine when free pages bind:
+    with prompt-only reservation, a request of 20 pages' prompt (319
+    tokens) and one of 16 (255 tokens) fill the RT_PAGES pool; each row's
+    next step fits its last page, a second step needs a page the pool
+    does not have.  ``pick_quantum`` asked for 16 steps must pick 1, and
+    that 1-step quantum runs without a stall; the slots are then
+    released and the pool must be empty."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.slo import DeadlineBook, pick_quantum
+
+    require(engine.pool.total == RT_PAGES and engine.active_slots == 0,
+            "page clamp: the engine is not idle")
+    rng = np.random.default_rng(seed + 2)
+    reserve = engine.page_reserve
+    engine.page_reserve = "prompt"
+    try:
+        for rid, n in ((900, 20 * PAGE_SIZE - 1), (901, 16 * PAGE_SIZE - 1)):
+            require(engine.admit_request(Request(
+                rid=rid, prompt=rng.integers(0, engine.cfg.vocab_size, n)
+                .astype(np.int32), max_new_tokens=MAX_NEW), drain=True),
+                "page clamp: admission refused")
+        free = engine.pool.free_pages
+        pick = pick_quantum(engine, DeadlineBook(), 0.0, 1e-3, 16)
+        handle = engine.begin_quantum(pick[1])
+        require(handle is not None and handle.steps == 1,
+                "page clamp: the clamped quantum did not run one step")
+        engine.finish_quantum(handle)
+        stalls = engine.page_stats["stalls"]
+    finally:
+        for slot, req in enumerate(engine.slot_req):
+            if req is not None:
+                engine.release_slot(slot)
+        engine.page_reserve = reserve
+    require(free == 0 and pick == ("decode", 1) and stalls == 0,
+            f"page clamp: {free} free pages, pick {pick}, {stalls} stalls")
+    require(engine.pool.used_pages == 0 and engine.pool.committed == 0,
+            f"page clamp: pages left in use: {engine.page_stats}")
+    report(f"page clamp: {RT_PAGES} of {RT_PAGES} pages held by two rows "
+           "(prompt-only reservation); pick_quantum asked for 16 steps "
+           f"picked {pick}; that quantum ran 1 step with 0 stalls; the pool "
+           "is empty after the slots are released")
+    return {"free_pages": free, "pick": list(pick), "stalls": stalls}
+
+
+def serve_runtime_paged(cfg, params, dev, counters, report, seed,
+                        card) -> dict:
+    """The runtime on a paged engine whose pool binds (RT_PAGES pages of
+    PAGE_SIZE, worst-case reservation) under an AdmissionController,
+    graphed and warm: in virtual time (admissions deferred on pages,
+    exact launches, an empty pool after), then in wall-clock mode; then
+    the scheduler's pick on a state where free pages clamp a quantum."""
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
+                           max_len=MAX_LEN, device=dev, page_size=PAGE_SIZE,
+                           n_pages=RT_PAGES)
+    t0 = time.perf_counter()
+    engine.warmup()
+    cuda_sync(engine)
+    report(f"runtime {cfg.name} paged engine ({RT_PAGES} pages of "
+           f"{PAGE_SIZE}, worst-case reservation): warmup "
+           f"{time.perf_counter() - t0:.2f} s")
+    expected = paged_launches(cfg)
+    out = {}
+    run = runtime_serve(engine, seed, counters, admission=True)
+    out["virtual"] = check_runtime_serve(
+        f"runtime {cfg.name} paged virtual time", run, expected, report)
+    require(run["deferred_on_pages"], "runtime paged: no admission "
+            "deferred on pages")
+    stats = engine.page_stats
+    require(stats["used_pages"] == 0 and stats["committed"] == 0,
+            f"runtime paged: pages left in use: {stats}")
+    out["virtual"]["page_stats"] = stats
+    out["virtual"]["metrics_workload_time"] = metrics_summary(run["metrics"])
+    wall = runtime_serve(engine, seed, counters, wall_clock=True,
+                         admission=True)
+    out["wall_clock_checks"] = check_runtime_serve(
+        f"runtime {cfg.name} paged wall clock", wall, expected, report)
+    out["wall_clock"] = wall_clock_report(
+        f"runtime {cfg.name} paged wall clock", wall, card, report)
+    prof = runtime_serve(engine, seed, counters, wall_clock=True,
+                         admission=True, profile=True)
+    out["wall_clock"]["idle"] = idle_share(
+        f"runtime {cfg.name} paged wall clock", wall["wall_s"], prof, card,
+        report)
+    require(engine.page_stats["used_pages"] == 0,
+            "runtime paged: pages left in use after the wall-clock serves")
+    out["page_clamp"] = page_clamp_check(engine, seed, report)
+    del engine
+    gc.collect()
+    return out
 
 
 def main() -> int:
@@ -1826,6 +2315,9 @@ def main() -> int:
                                      counters, expected)
         same_streams(name, served[name], eager_out, report)
         served[name]["eager"] = eager_out
+        if cfg.ssm is None:
+            served[name]["runtime"] = serve_runtime_dense(
+                eager, engine, cfg, counters, report, args.seed, card)
         served[name]["level_sweep"] = level_sweep(engine, prompts, report)
         served[name]["pairs"] = eager_graph_pairs(
             eager, engine, prompts, report, groups, chunk=True)
@@ -1844,7 +2336,7 @@ def main() -> int:
             paged = f"{name} paged"
             served[paged], prof[paged] = serve_paged(
                 cfg, params, prompts, served[name]["streams"], dev, report,
-                args.seed)
+                args.seed, card)
             model_check[paged] = whole_model_check_paged(
                 cfg, params, prompts[1], dev, report)
         else:

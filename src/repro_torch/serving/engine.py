@@ -182,6 +182,9 @@ class Request:
     max_new_tokens: int = 16
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
+    tier: str | None = None       # SLO tier (core.qos.TIER_ORDER); None =
+                                  # untiered legacy request (standard urgency,
+                                  # legacy qos_s-relative satisfaction)
 
 
 @dataclasses.dataclass
@@ -340,6 +343,11 @@ class TorchServingEngine:
         self.host_syncs = 0
         self.tokens_decoded = 0
         self.quantum_calls = 0
+        # speculative-decode counters the runtime's metrics read; this
+        # engine runs no speculative quanta, so they stay 0
+        self.tokens_drafted = 0
+        self.tokens_accepted = 0
+        self.spec_rollbacks = 0
         self.version_cache = VersionCache(
             self.model, graphs=CudaGraphs(self.device)
             if self.device.type == "cuda" and cuda_graphs else None)
@@ -359,6 +367,26 @@ class TorchServingEngine:
     @property
     def tokens_per_sync(self) -> float:
         return self.tokens_decoded / max(self.host_syncs, 1)
+
+    # The runtime's and the SLO scheduler's hooks.  Each is defined under a
+    # port name and bound to the reference's name as a class attribute,
+    # not by a second ``def``: the repository's static analyzer resolves
+    # some of the reference's calls by the method name being unique.
+    @property
+    def draft_acceptance(self) -> float:
+        """Accepted draft tokens / drafted tokens (0.0 before any
+        speculative quantum ran)."""
+        return self.tokens_accepted / max(self.tokens_drafted, 1)
+
+    draft_hit_rate = draft_acceptance
+
+    def accept_per_step(self) -> float:
+        """Expected tokens emitted per dispatched decode step: 1.0 on an
+        engine without speculative quanta (the SLO scheduler's slack
+        arithmetic multiplies its step budget by this)."""
+        return 1.0
+
+    expected_accept_per_step = accept_per_step
 
     def tiles_for_level(self, level: float) -> dict:
         """The tile table selected at ``level``."""
@@ -763,14 +791,8 @@ class TorchServingEngine:
             return max(int(k), 1)
         assert self.pool is not None
         ps = self.page_size
-        rows = []
-        for i, req in enumerate(self.slot_req):
-            if req is None or i in self._prefill:
-                continue
-            need = req.max_new_tokens + 1 - len(req.output)
-            room = self.max_len - 1 - int(self.slot_pos[i])
-            rows.append((int(self.slot_pos[i]), max(1, min(need, room)),
-                         self._slot_pages[i]))
+        rows = [(int(self.slot_pos[i]), budget, self._slot_pages[i])
+                for i, _, budget in self.decodable_rows()]
         free = self.pool.free_pages
         best = 1
         for kk in range(1, int(k) + 1):
@@ -920,6 +942,46 @@ class TorchServingEngine:
     def prefill_pending(self) -> int:
         """Slots whose prompts are not fully prefilled yet."""
         return len(self._prefill)
+
+    @property
+    def has_decodable(self) -> bool:
+        """Any occupied slot past prefill (eligible for decode quanta)."""
+        return any(r is not None and i not in self._prefill
+                   for i, r in enumerate(self.slot_req))
+
+    decode_ready = has_decodable
+
+    def prefill_backlog(self) -> list[tuple[int, int, int]]:
+        """Slots mid-prefill, FIFO order: (slot, rid, chunks_left), the SLO
+        scheduler's view of the prefill backlog."""
+        return [(slot, st.req.rid, len(st.schedule))
+                for slot, st in self._prefill.items()]
+
+    prefill_queue = prefill_backlog
+
+    def decodable_rows(self) -> list[tuple[int, int, int]]:
+        """Decodable slots: (slot, rid, tokens_left), ``tokens_left`` the
+        remaining decode budget the SLO scheduler sizes quanta from."""
+        out = []
+        for i, req in enumerate(self.slot_req):
+            if req is None or i in self._prefill:
+                continue
+            need = req.max_new_tokens + 1 - len(req.output)
+            room = self.max_len - 1 - int(self.slot_pos[i])
+            out.append((i, req.rid, max(1, min(need, room))))
+        return out
+
+    decode_backlog = decodable_rows
+
+    def prefill_turn(self, last_was_prefill: bool) -> bool:
+        """Strict prefill/decode alternation (the FIFO scheduler): spend
+        this quantum on a prefill chunk when a prompt is mid-prefill and
+        either nothing is decodable yet or the previous quantum was a
+        decode."""
+        return bool(self._prefill) and (not self.has_decodable
+                                        or not last_was_prefill)
+
+    should_prefill = prefill_turn
 
     def prefill_step(self, slot: int | None = None) -> PrefillQuantum | None:
         """Run ONE prefill chunk for ``slot`` (default: the oldest slot

@@ -602,3 +602,39 @@ def test_no_capture_after_warmup_across_a_level_sweep(cuda_device):
     assert (vc.traces, vc.misses, len(vc._calls)) == \
         (traces0, misses0, calls0)
     assert sum(c.replays for c in vc._calls.values()) > replays0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_runtime_serve_on_the_card_graphed_equals_eager(cuda_device, case):
+    """``TorchOnlineRuntime`` with ``VeltairPolicy`` in the loop, in
+    virtual time, on the eager and the graphed engine (both warm, on the
+    card): identical schedule and level traces, token streams and
+    metrics; more than one level; the serve captures nothing; and one
+    host sync per decode quantum and per finished prompt."""
+    from repro_torch.core.scheduler import VeltairPolicy
+    from repro_torch.serving.runtime import OnlineRuntime, Workload
+    from repro_torch.serving.slo import AdmissionController
+    from repro_torch.serving.tenants import build_paper_plans
+
+    engines, _ = _graph_engines(case)
+    plans = build_paper_plans(["resnet50", "googlenet"], cm.CPU_3990X)
+    runs = []
+    for eng in engines:
+        assert eng.device.type == "cuda"
+        traces0, syncs0 = eng.version_cache.traces, eng.host_syncs
+        rt = OnlineRuntime(eng, VeltairPolicy(cm.CPU_3990X), plans,
+                           cm.CPU_3990X,
+                           admission=AdmissionController()
+                           if eng.paged else None)
+        m = rt.serve(Workload.bursty(
+            ["resnet50", "googlenet"], 900, 12, prompt_len=20,
+            prompt_len_spread=15, max_new_tokens=6, seed=3,
+            tiers={"resnet50": "interactive", "googlenet": "batch"}))
+        assert eng.version_cache.traces == traces0
+        decodes = sum(ev[0] == "decode" for ev in rt.sched_trace)
+        assert eng.host_syncs - syncs0 == decodes + m.n_queries
+        runs.append((rt.sched_trace, rt.level_trace, rt.outputs,
+                     m.n_queries, m.avg_latency_s, m.qos_rate))
+    assert runs[0] == runs[1]
+    assert len({cm.level_to_idx(x) for x in runs[1][1]}) > 1
