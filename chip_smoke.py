@@ -14,10 +14,11 @@ Phases, each fatal on failure:
   2. every kernel against its plain PyTorch version, in bf16 at the
      serving paths' shapes, each call launched twice and equal bit for
      bit (``block_matmul`` and ``flash_attention`` under every distinct
-     tile of the H100 level table: B1 at M = 1, 4, 16 and a K that a
-     cluster of 8 cannot split evenly, B2 with MQA and GQA, decode rows at
-     positions 0 and 511 and 16-token chunks, and every block B2 is built
-     for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
+     tile of the H100 level table: B1 at M = 1, 4, 16 over gemma-2b's and
+     starcoder2-3b's MLP GEMMs and a K that a cluster of 8 cannot split
+     evenly, B2 with MQA and GQA at gemma-2b's heads and at starcoder2-3b's
+     (24 over 2 KV heads, D 128), decode rows at positions 0 and 511 and
+     16-token chunks, and every block B2 is built for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
      monolithic prompt, B = 4 and ragged shapes, with B and C per group
      (G = 1, as the model passes them) and per head; ``flash_attention_paged``
      at page sizes 8, 16 and 32 over shuffled page tables at split 8, rows
@@ -41,7 +42,9 @@ Phases, each fatal on failure:
      nothing.  Then a full level sweep on the graphed engine captures
      nothing; PAIRS alternating eager/graph pairs of an 8-step decode
      quantum and of a 16-token prefill chunk give wall, device busy
-     (torch.profiler), idle share and decode tokens/s; and a host profile
+     (torch.profiler), idle share and decode tokens/s, and PAIRS more
+     the graphed engine on its own stream against one built on the
+     current stream (what a stream of its own costs); and a host profile
      of one eager quantum (cProfile, and torch.profiler's CPU activity)
      says where the host's time goes.  Then the online runtime on the
      same warm engines: ``TorchOnlineRuntime`` with ``VeltairPolicy`` in
@@ -60,7 +63,7 @@ Phases, each fatal on failure:
   5. whole-model check: first-prefill-chunk and first-decode logits
      through the kernels and through the plain versions, same weights;
   6. serve (eager and graphed), sweep, pair, profile and check
-     mamba2-780m the same way (48 layers,
+     mamba2-780m the same way (24 of its 48 layers: MAMBA2_EARLY_LAYERS,
      d_inner 3072, 48 SSD heads): ``ssd_scan`` launches once per layer
      for every prefill chunk of two or more tokens; the profile covers
      one 16-token prefill chunk and one 8-step decode quantum; the
@@ -85,7 +88,33 @@ Phases, each fatal on failure:
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
      count of each launch (for B1 and B2 at each level), and B1 and its
-     yardstick again after an L2 flush that leaves no dirty lines.
+     yardstick again after an L2 flush that leaves no dirty lines;
+  9. co-location: ``hardware_spec_for`` checks the card against
+     ``H100_SXM``; ``cluster_plans`` compiles gemma-2b, starcoder2-3b and
+     mamba2-780m for it (each plan's QoS, its tile source's versions and
+     the tile each level selects, all built B1 tiles held against the
+     plain version in phase 2); the plans select one version at every
+     level, so each tile source gets CL_SECOND_TILE from level
+     CL_SWITCH_LEVEL up; ``build_cluster`` stands up the three at full
+     width (``batch_slots=4``, ``max_len=512``, seeded weights made on the
+     card), each engine on a CUDA stream of its own; starcoder2-3b's
+     logits through the kernels are held against the plain versions; and
+     ``ClusterRuntime.warmup`` captures the two versions the levels
+     select.  CL_QUERIES Poisson queries then run in
+     virtual time with oracle counters under ``VeltairPolicy`` (every
+     query served, every tick within the 132 SMs and the pool whole
+     after, a level per quantum, nothing captured, one host sync per
+     decode quantum and per finished prompt, exact launch counts, every
+     engine running both of its versions), and every request is served
+     again alone on its engine through the code versions and steps it
+     met, which must give its co-located token stream; then in wall-clock
+     mode with measured counters on separate streams (and a profiled
+     rerun), under ``PremaPolicy`` (at most one engine granted per tick),
+     and on three engines built on one shared stream (the same weights,
+     warmed before they serve): latencies, wall and runtime host time per tick, tokens/s,
+     levels, and the device's idle share and the streams' overlap from
+     CUDA events around every dispatch (and from the kernels' busy time
+     in the profiled rerun).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -138,6 +167,10 @@ MAX_NEW = 32
 QUANTUM = 8
 BATCH_SLOTS = 4
 MAX_LEN = 512
+# phase 6 serves mamba2-780m at half depth (24 of its 48 layers, widths
+# unchanged) to keep the script well inside its time limit: its warmup
+# captures 121 graphs of every layer; phase 9 serves it at full depth
+MAMBA2_EARLY_LAYERS = 24
 
 
 class SmokeFailure(RuntimeError):
@@ -263,10 +296,12 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                      for t in H100_LEVEL_TILES}.values())
     att_tiles = list({tuple(sorted(t["attention"].items())): t["attention"]
                       for t in H100_LEVEL_TILES}.values())
-    # the serve's GEMMs at M = 1, 4 and 16; K = 16576 = 259 tiles of 64,
-    # which a cluster of 8 cannot split evenly; ragged shapes
+    # the serves' GEMMs at M = 1, 4 and 16 (gemma-2b's MLP, then
+    # starcoder2-3b's); K = 16576 = 259 tiles of 64, which a cluster of 8
+    # cannot split evenly; ragged shapes
     shapes = [(m, k, n) for m in (1, 4, 16)
-              for k, n in ((2048, 16384), (16384, 2048))]
+              for k, n in ((2048, 16384), (16384, 2048), (3072, 12288),
+                           (12288, 3072))]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -298,21 +333,28 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                f"bitwise equal across two launches, max abs err "
                f"{case_abs:.4g}, max rel err {case_rel:.4g} ({tol}); "
                f"(split, blocks) {sorted(used)}")
-    # (label, B, S, KH, offsets, kv_valid): gemma-2b's 8 query heads at
-    # D 256; MQA and GQA (K = 2), decode rows at positions 0 and 511
+    # (label, B, S, H, KH, D, offsets, kv_valid): gemma-2b's 8 query heads
+    # at D 256, MQA and GQA (K = 2), decode rows at positions 0 and 511;
+    # starcoder2-3b's 24 query heads over 2 KV heads at D 128 (12:1)
     cases = [
-        ("prefill chunk", 1, 16, 1, [32], [48]),
-        ("prefill chunk at 240", 1, 16, 1, [240], [256]),
-        ("decode", 4, 1, 1, [5, 100, 300, 511], [6, 101, 301, 512]),
-        ("decode at 0 and 511", 2, 1, 1, [0, 511], [1, 512]),
-        ("GQA K=2 decode", 4, 1, 2, [0, 100, 300, 511], [1, 101, 301, 512]),
-        ("GQA K=2 prefill chunk", 2, 16, 2, [0, 240], [16, 256]),
+        ("prefill chunk", 1, 16, 8, 1, 256, [32], [48]),
+        ("prefill chunk at 240", 1, 16, 8, 1, 256, [240], [256]),
+        ("decode", 4, 1, 8, 1, 256, [5, 100, 300, 511], [6, 101, 301, 512]),
+        ("decode at 0 and 511", 2, 1, 8, 1, 256, [0, 511], [1, 512]),
+        ("GQA K=2 decode", 4, 1, 8, 2, 256, [0, 100, 300, 511],
+         [1, 101, 301, 512]),
+        ("GQA K=2 prefill chunk", 2, 16, 8, 2, 256, [0, 240], [16, 256]),
+        ("starcoder2-3b decode", 4, 1, 24, 2, 128, [5, 100, 300, 511],
+         [6, 101, 301, 512]),
+        ("starcoder2-3b prefill chunk", 1, 16, 24, 2, 128, [32], [48]),
+        ("starcoder2-3b prefill chunk at 240", 1, 16, 24, 2, 128, [240],
+         [256]),
     ]
-    for name, b, s, kh, offs, kvls in cases:
-        q = torch.randn(b, s, 8, 256, generator=gen, device=dev).bfloat16()
-        kk = torch.randn(b, MAX_LEN, kh, 256, generator=gen,
+    for name, b, s, h, kh, d, offs, kvls in cases:
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+        kk = torch.randn(b, MAX_LEN, kh, d, generator=gen,
                          device=dev).bfloat16()
-        v = torch.randn(b, MAX_LEN, kh, 256, generator=gen,
+        v = torch.randn(b, MAX_LEN, kh, d, generator=gen,
                         device=dev).bfloat16()
         off = torch.tensor(offs, device=dev)
         kvl = torch.tensor(kvls, device=dev)
@@ -333,7 +375,7 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                         f"flash_attention {name} tiles {tiles}: differs "
                         "from the reference build")
                 torch.cuda.synchronize()
-                _, split, blocks = fa.launch_geometry(b, s, 8, kh, MAX_LEN,
+                _, split, blocks = fa.launch_geometry(b, s, h, kh, MAX_LEN,
                                                       **tiles)
                 used.add((split, blocks))
                 splits["flash_attention"][split] += 1
@@ -821,10 +863,12 @@ def device_profile(fn, groups: dict) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel: dict[str, float] = collections.Counter()
     n_device_ops = 0
+    spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.time_range.elapsed_us()
             n_device_ops += 1
+            spans.append((e.time_range.start, e.time_range.end))
     by_group: dict[str, float] = collections.Counter()
     for name, us in by_kernel.items():
         by_group[next((g for g, sub in groups.items() if sub in name),
@@ -832,9 +876,25 @@ def device_profile(fn, groups: dict) -> dict:
     others = sorted(((us, n) for n, us in by_kernel.items()
                      if not any(sub in n for sub in groups.values())),
                     reverse=True)
+    merged = merge_intervals(spans)
+    gaps = [b[0] - a[1] for a, b in zip(merged, merged[1:])]
     return {"wall_us": wall_us, "busy_us": sum(by_kernel.values()),
             "n_device_ops": n_device_ops, "by_group": by_group,
-            "others": others}
+            "others": others,
+            "node_gap_us_mean": (sum(gaps) / len(gaps) if gaps else None),
+            "node_gap_us_median": (statistics.median(gaps) if gaps
+                                   else None)}
+
+
+def merge_intervals(spans: list) -> list:
+    """The union of (start, end) intervals, as disjoint sorted ones."""
+    out: list = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
 def timed(fn) -> float:
@@ -857,6 +917,8 @@ def profile_summary(what, unprofiled_us, prof, steps, report) -> dict:
            "device_idle_share_profiled": (1.0 - busy_us / prof["wall_us"]
                                           if busy_us else None),
            "device_ops_per_step": prof["n_device_ops"] / steps,
+           "node_gap_us_mean": prof["node_gap_us_mean"],
+           "node_gap_us_median": prof["node_gap_us_median"],
            "device_ms_by_group": {k: v / 1e3
                                   for k, v in prof["by_group"].items()},
            "top_other_kernels_ms": [(n[:120], us / 1e3)
@@ -870,7 +932,9 @@ def profile_summary(what, unprofiled_us, prof, steps, report) -> dict:
            f"busy {out['device_busy_ms']:.2f} ms, idle share "
            f"{out['device_idle_share']:.3f} "
            f"({out['device_idle_share_profiled']:.3f} under the profiler); "
-           f"{out['device_ops_per_step']:.0f} device ops per step; device ms "
+           f"{out['device_ops_per_step']:.0f} device ops per step, gap "
+           f"between consecutive device ops {out['node_gap_us_mean']:.3f} "
+           f"us mean, {out['node_gap_us_median']:.3f} us median; device ms "
            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                out["device_ms_by_group"].items())))
     report(f"profile {what}: largest other kernels (ms): " + "; ".join(
@@ -1047,10 +1111,26 @@ def level_sweep(engine, prompts, report) -> dict:
     require(vc.traces == traces0 and vc.misses == misses0,
             f"level sweep after warmup built {vc.traces - traces0} calls, "
             f"{vc.misses - misses0} versions")
+    # the cost of a level switch between two captured versions (a
+    # dictionary swap of graphs), alternating the extreme levels
+    lo, hi = cm.grid_point(0), cm.grid_point(cm.NUM_LEVELS - 1)
+    require(engine.tiles_for_level(lo) != engine.tiles_for_level(hi),
+            "level sweep: the extreme levels share a version")
+    t0 = time.perf_counter()
+    for i in range(SWITCHES):
+        engine.set_interference_level(hi if i % 2 == 0 else lo)
+    switch_us = (time.perf_counter() - t0) * 1e6 / SWITCHES
+    require(vc.traces == traces0, "level switches built a call")
     report(f"{engine.cfg.name}{' paged' if engine.paged else ''} level "
            f"sweep over {cm.NUM_LEVELS} levels after warmup: 0 captures, "
-           f"{replays} graph replays")
-    return {"levels": cm.NUM_LEVELS, "captures": 0, "replays": replays}
+           f"{replays} graph replays; a level switch between captured "
+           f"versions takes {switch_us:.2f} us (mean of {SWITCHES})")
+    return {"levels": cm.NUM_LEVELS, "captures": 0, "replays": replays,
+            "switch_us": switch_us}
+
+
+# level switches timed after a sweep
+SWITCHES = 200
 
 
 PAIRS = 5
@@ -1067,18 +1147,20 @@ def _summary(rows: list[dict]) -> dict:
     return out
 
 
-def eager_graph_pairs(eager, graphed, prompts, report, groups, *,
-                      chunk: bool) -> dict:
-    """Alternating eager/graph pairs in one call, PAIRS of each: an
-    8-step decode quantum of four rows at level 0 (and, with ``chunk``, a
-    16-token prefill chunk that ends in the admission's first-token
-    sync).  Each run is timed alone (the wall) and again under
-    torch.profiler (device busy); the idle share is 1 - busy / wall.
-    Pair i runs eager first when i is even, graphs first when odd."""
+def engine_pairs(engines: dict, prompts, report, groups, *,
+                 chunk: bool) -> dict:
+    """Alternating runs of two engines of one model in one call (``engines``
+    maps a label, e.g. "eager" and "graphs", to an engine), PAIRS of
+    each: an 8-step decode quantum of four rows at level 0 (and, with
+    ``chunk``, a 16-token prefill chunk that ends in the admission's
+    first-token sync).  Each run is timed alone (the wall) and again
+    under torch.profiler (device busy); the idle share is 1 - busy /
+    wall.  Pair i runs the first engine first when i is even, the second
+    first when odd."""
     from repro_torch.core import cost_model as cm
     from repro_torch.serving.engine import Request
 
-    engines = {"eager": eager, "graphs": graphed}
+    first = next(iter(engines.values()))
     for eng in engines.values():
         eng.set_interference_level(cm.grid_point(0))
         for i, p in enumerate(prompts[:BATCH_SLOTS]):
@@ -1134,7 +1216,7 @@ def eager_graph_pairs(eager, graphed, prompts, report, groups, *,
                      for name, r in rows.items()}
         for name in engines:
             sm = out[kind][name]["summary"]
-            report(f"pairs {eager.cfg.name}{' paged' if eager.paged else ''}"
+            report(f"pairs {first.cfg.name}{' paged' if first.paged else ''}"
                    f" {kind} {name} ({PAIRS} runs, median [min, max]): "
                    + "; ".join(f"{k} {v['median']:.4g} [{v['min']:.4g}, "
                                f"{v['max']:.4g}]" for k, v in sm.items()))
@@ -1142,6 +1224,29 @@ def eager_graph_pairs(eager, graphed, prompts, report, groups, *,
         for slot, req in enumerate(eng.slot_req):
             if req is not None and req.rid >= 700:
                 eng.release_slot(slot)
+    return out
+
+
+def stream_pairs(engine, cfg, params, prompts, dev, report, groups) -> dict:
+    """The graphed engine on its own stream (every engine's default)
+    against one built on the caller's current stream, alternating in one
+    call: what running on a stream of its own costs a chunk and a
+    quantum."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import ServingEngine
+
+    cur = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
+                        max_len=MAX_LEN, device=dev,
+                        stream=torch.cuda.current_stream(dev))
+    require(cur.stream == torch.cuda.current_stream(dev)
+            and engine.stream != cur.stream,
+            "stream pairs: the engines' streams are not the ones asked for")
+    cur.warmup(levels=[cm.grid_point(0)])
+    out = engine_pairs({"own stream": engine, "current stream": cur},
+                       prompts, report, groups, chunk=True)
+    del cur
+    gc.collect()
     return out
 
 
@@ -1721,8 +1826,8 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
     same_streams(f"{cfg.name} paged", out, eager_out, report)
     out["eager"] = eager_out
     out["level_sweep"] = level_sweep(engine, prompts, report)
-    out["pairs"] = eager_graph_pairs(eager, engine, prompts, report, groups,
-                                     chunk=False)
+    out["pairs"] = engine_pairs({"eager": eager, "graphs": engine}, prompts,
+                                report, groups, chunk=False)
     same = [out["streams"][j] == dense_streams[i]
             for j, i in enumerate(order) if i is not None]
     out["streams_equal_to_dense"] = sum(same)
@@ -2227,6 +2332,710 @@ def serve_runtime_paged(cfg, params, dev, counters, report, seed,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: co-location (ClusterRuntime over three full-width engines)
+
+CL_ARCHS = ("gemma-2b", "starcoder2-3b", "mamba2-780m")
+# starcoder2-3b's published widths, held before its engine is built
+CL_STARCODER2 = {"num_layers": 30, "d_model": 3072, "num_heads": 24,
+                 "num_kv_heads": 2, "head_dim": 128, "d_ff": 12288}
+CL_QUERIES = 24
+CL_QPS = 40.0
+# the H100 plans select one version at every level (their efficiency curve
+# is TPU_V5E_POD's, uncalibrated), so a serve under them never switches:
+# phase 9 adds a second built tile to each plan's tile source, selected
+# from grid level CL_SWITCH_LEVEL up (half the solo tile's bk and bn: a
+# quarter of its shared memory, twice the blocks), so the co-located
+# engines switch versions mid-serve
+CL_SECOND_TILE = (128, 32, 64)
+CL_SWITCH_LEVEL = 2
+STREAM_ENTRIES = 10_000
+
+
+def cluster_workload(seed: int):
+    """Phase 9's traffic: Poisson arrivals over the three tenants, prompts
+    of 5-250 tokens (drawn as the runtime phases draw them), MAX_NEW new
+    tokens each."""
+    from repro_torch.serving.runtime import Workload
+    return Workload.poisson(list(CL_ARCHS), CL_QPS, CL_QUERIES,
+                            prompt_len=250, prompt_len_spread=245,
+                            max_new_tokens=MAX_NEW, seed=seed)
+
+
+def two_version_plans(plans: dict, hw) -> dict:
+    """Each plan with its tile source's version set (the layer of the
+    largest solo-version FLOPs, as the engine picks it) holding
+    CL_SECOND_TILE beside its solo version, selected from grid level
+    CL_SWITCH_LEVEL up."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import schedule_space as ss
+
+    out = {}
+    for arch, plan in plans.items():
+        vsets = list(plan.version_sets)
+        i = max(range(len(vsets)),
+                key=lambda j: vsets[j].solo_version().flops)
+        second = [v for v in ss.enumerate_versions(plan.layers[i], hw)
+                  if (v.bm, v.bk, v.bn) == CL_SECOND_TILE]
+        solo = vsets[i].solo_version()
+        require(len(second) == 1 and solo.key() != second[0].key(),
+                f"cluster: {arch}'s tile source {vsets[i].layer_name} has "
+                f"no version {CL_SECOND_TILE} apart from its solo version")
+        vsets[i] = dataclasses.replace(
+            vsets[i], versions=[solo, second[0]],
+            level_table=[0] * CL_SWITCH_LEVEL
+            + [1] * (cm.NUM_LEVELS - CL_SWITCH_LEVEL))
+        out[arch] = dataclasses.replace(plan, version_sets=vsets)
+    return out
+
+
+def cluster_launches(cfgs: dict):
+    """Launches a cluster serve makes: each forward pass (decode step or
+    prefill chunk) of a dense engine runs its MLP GEMMs (three per layer
+    gated, two plain) and its attention through the kernels; mamba2 runs
+    the scan once per layer for every prefill chunk of two or more
+    tokens.  ``expected(passes)`` takes arch -> (decode steps, chunk
+    sizes)."""
+    def expected(passes):
+        want = collections.Counter()
+        why = collections.defaultdict(list)
+        for arch, (steps, chunks) in passes.items():
+            cfg = cfgs[arch]
+            if cfg.ssm is not None:
+                scan = sum(c >= 2 for c in chunks)
+                want["ssd_scan"] += cfg.num_layers * scan
+                why["ssd_scan"].append(f"{arch} {cfg.num_layers} x {scan} "
+                                       "chunks of >= 2 tokens")
+                continue
+            mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
+            n = steps + len(chunks)
+            want["block_matmul"] += mats * cfg.num_layers * n
+            want["flash_attention"] += cfg.num_layers * n
+            why["block_matmul"].append(
+                f"{arch} {mats * cfg.num_layers} x {n} passes")
+            why["flash_attention"].append(
+                f"{arch} {cfg.num_layers} x {n} passes")
+        return want, {k: "; ".join(v) for k, v in why.items()}
+    return expected
+
+
+class ClusterCalls:
+    """Wraps every engine's device-facing calls for one cluster serve
+    (instance attributes that shadow the methods; ``close()`` restores
+    them): the host time inside the engines, each engine's decode
+    K-buckets, prefill chunk sizes, decode quanta and finished prompts
+    (the launch and host-sync accounting), per request the code version
+    and the steps of every chunk and decode quantum it ran in (the solo
+    replay), and, on the card, a pair of CUDA events on the engine's
+    stream around every chunk and quantum it dispatches (its stream's
+    activity: ``stream_activity``)."""
+
+    TIMED = ("admit_request", "set_interference_level", "prefill_step",
+             "begin_quantum", "finish_quantum")
+
+    def __init__(self, tenants):
+        import torch
+        self.tenants = tenants
+        self.inside_s = 0.0
+        self.buckets = {t.name: [] for t in tenants}
+        self.chunks = {t.name: [] for t in tenants}
+        self.finished_prompts = {t.name: 0 for t in tenants}
+        self.ops: dict[int, list] = collections.defaultdict(list)
+        self.versions = {t.name: [] for t in tenants}
+        self.cuda = torch.cuda.is_available()
+        self.spans: list[tuple] = []        # (stream, start, end events)
+        self.origin = None
+        if self.cuda:
+            self.origin = torch.cuda.Event(enable_timing=True)
+            self.origin.record()
+        for t in tenants:
+            for name in self.TIMED:
+                setattr(t.engine, name,
+                        self._wrap(t.name, t.engine, name,
+                                   getattr(t.engine, name)))
+
+    def _event(self, stream):
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def _wrap(self, tenant, engine, name, fn):
+        spans = self.cuda and name in ("prefill_step", "begin_quantum")
+
+        def call(*args, **kw):
+            level, key = engine.interference_level, engine._entry.key
+            t0 = time.perf_counter()
+            start = self._event(engine.stream) if spans else None
+            out = fn(*args, **kw)
+            if spans and out is not None:
+                self.spans.append((engine.stream, tenant, start,
+                                   self._event(engine.stream)))
+            self.inside_s += time.perf_counter() - t0
+            if name in ("prefill_step", "begin_quantum") and out is not None:
+                self.versions[tenant].append(key)
+            if name == "prefill_step" and out is not None:
+                self.chunks[tenant].append(out.chunk)
+                self.finished_prompts[tenant] += out.finished
+                self.ops[out.rid].append(("chunk", level, key, out.chunk))
+            elif name == "begin_quantum" and out is not None:
+                self.buckets[tenant].append(out.bucket)
+                for i in out.active:
+                    self.ops[engine.slot_req[i].rid].append(
+                        ("decode", level, key, int(out.n_left[i])))
+            return out
+        return call
+
+    def close(self) -> None:
+        for t in self.tenants:
+            for name in self.TIMED:
+                t.engine.__dict__.pop(name, None)
+
+    def stream_activity(self) -> dict | None:
+        """After the serve has synchronized: each stream's active time
+        (the union of the spans from a dispatch's first event to its last
+        on that stream: the engine's work in flight, its kernels and the
+        gaps between them) and the union over all streams, in ms."""
+        if not self.spans:
+            return None
+        by_stream = collections.defaultdict(list)
+        names = collections.defaultdict(set)
+        for stream, tenant, start, end in self.spans:
+            by_stream[id(stream)].append(
+                (self.origin.elapsed_time(start),
+                 self.origin.elapsed_time(end)))
+            names[id(stream)].add(tenant)
+        per = {"+".join(sorted(names[k])): sum(
+            b - a for a, b in merge_intervals(v))
+            for k, v in by_stream.items()}
+        union = merge_intervals([x for v in by_stream.values() for x in v])
+        return {"union_active_ms": sum(b - a for a, b in union),
+                "stream_active_ms": per,
+                "sum_stream_active_ms": sum(per.values())}
+
+
+def stream_busy(prof) -> dict:
+    """From a torch.profiler trace of the card: the union of its busy
+    intervals (ms), each stream's busy time (ms, the union of its own
+    intervals) and their sum.  Read from the profiler's raw results."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(prof.profiler, "kineto_results", None)
+    spans = collections.defaultdict(list)
+    if raw is not None:
+        for e in raw.events():
+            if e.device_type() == cuda:
+                s = e.start_ns()
+                spans[e.device_resource_id()].append((s, s + e.duration_ns()))
+    union = merge_intervals([x for v in spans.values() for x in v])
+    per_stream = {str(k): sum(b - a for a, b in merge_intervals(v)) / 1e6
+                  for k, v in spans.items()}
+    return {"union_busy_ms": sum(b - a for a, b in union) / 1e6,
+            "stream_busy_ms": per_stream,
+            "sum_stream_busy_ms": sum(per_stream.values())}
+
+
+def cluster_serve(tenants, hw, policy, seed, counters, *, wall_clock=False,
+                  profile=False) -> dict:
+    """One serve of ``cluster_workload(seed)`` through ClusterRuntime over
+    ``tenants`` with ``policy`` (a class taking the spec): oracle counters
+    in virtual time, measured counters in wall-clock mode.  The launch
+    counters are zeroed just before the serve and read just after;
+    ``profile`` runs it under torch.profiler's CUDA activity and adds the
+    busy union and per-stream busy."""
+    import torch
+    from repro_torch.serving.cluster import ClusterRuntime
+
+    rt = ClusterRuntime(tenants, policy(hw), hw, wall_clock=wall_clock,
+                        counter_source="measured" if wall_clock
+                        else "oracle")
+    wl = cluster_workload(seed)
+    engines = {t.name: t.engine for t in tenants}
+    traces0 = {n: e.version_cache.traces for n, e in engines.items()}
+    syncs0 = {n: e.host_syncs for n, e in engines.items()}
+    tokens0 = {n: e.tokens_decoded for n, e in engines.items()}
+    calls = ClusterCalls(tenants)
+    busy = None
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.clear()
+    t0 = time.perf_counter()
+    try:
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as tprof
+            with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+                metrics = rt.serve(wl)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            busy = stream_busy(prof)
+        else:
+            metrics = rt.serve(wl)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        calls.close()
+    trace_s = time.perf_counter() - t0 - wall_s
+    return {"runtime": rt, "metrics": metrics, "workload": wl,
+            "calls": calls, "wall_s": wall_s, "trace_s": trace_s,
+            "activity": calls.stream_activity(),
+            "launches": {name: sum(c.values())
+                         for name, c in counters.items()},
+            "builds": {n: e.version_cache.traces - traces0[n]
+                       for n, e in engines.items()},
+            "host_syncs": {n: e.host_syncs - syncs0[n]
+                           for n, e in engines.items()},
+            "tokens": {n: e.tokens_decoded - tokens0[n]
+                       for n, e in engines.items()},
+            "busy": busy}
+
+
+def check_cluster_serve(what, run, hw, expected, report) -> dict:
+    """The checks every cluster serve must pass: every query served with
+    all its tokens, every tick's grants within the SMs and the pool whole
+    after, a quantum and a level per quantum for every engine, nothing
+    built, one host sync per decode quantum and per finished prompt, and
+    launches equal to the forward passes each engine ran."""
+    rt, m, wl, calls = (run["runtime"], run["metrics"], run["workload"],
+                        run["calls"])
+    require(m.aggregate.n_queries == wl.n_queries == len(rt.outputs),
+            f"{what}: {m.aggregate.n_queries} of {wl.n_queries} served")
+    require(all(len(toks) == wl.max_new_tokens + 1
+                for toks in rt.outputs.values()),
+            f"{what}: a request ended short")
+    sums = [sum(p.values()) for p in m.partition_trace]
+    require(max(sums) <= hw.n_units and m.pool_peak_used <= hw.n_units,
+            f"{what}: a tick granted {max(sums)} of {hw.n_units} SMs")
+    require(rt.pool.free == rt.pool.total, f"{what}: the pool holds "
+            f"{rt.pool.total - rt.pool.free} units after the serve")
+    names = [t.name for t in rt.tenants]
+    require(all(m.quanta[a] >= 1 and len(m.level_traces[a]) == m.quanta[a]
+                for a in names), f"{what}: quanta {m.quanta}, level traces "
+            f"{ {a: len(v) for a, v in m.level_traces.items()} }")
+    require(not any(run["builds"].values()),
+            f"{what}: builds (captures) during the serve {run['builds']}")
+    for a in names:
+        want = len(calls.buckets[a]) + calls.finished_prompts[a]
+        require(run["host_syncs"][a] == want,
+                f"{what}: {a} {run['host_syncs'][a]} host syncs for "
+                f"{len(calls.buckets[a])} decode quanta + "
+                f"{calls.finished_prompts[a]} finished prompts")
+    passes = {a: (sum(calls.buckets[a]), calls.chunks[a]) for a in names}
+    want, why = expected(passes)
+    for name, n in run["launches"].items():
+        require(n == want[name], f"{what}: {name} {n} launches, expected "
+                f"{want[name]} ({why.get(name)})")
+    levels = {a: dict(sorted(collections.Counter(
+        cm_idx(x) for x in m.level_traces[a]).items())) for a in names}
+    # the code versions each engine ran its chunks and quanta in, and how
+    # often it switched between them mid-serve
+    versions = {a: len(set(calls.versions[a])) for a in names}
+    switches = {a: sum(x != y for x, y in zip(calls.versions[a],
+                                              calls.versions[a][1:]))
+                for a in names}
+    out = {"queries": m.aggregate.n_queries, "ticks": rt.ticks,
+           "quanta": dict(m.quanta), "prefill_quanta": m.prefill_quanta,
+           "decode_quanta": {a: len(calls.buckets[a]) for a in names},
+           "decode_steps": {a: sum(calls.buckets[a]) for a in names},
+           "prefill_chunks": {a: len(calls.chunks[a]) for a in names},
+           "host_syncs": run["host_syncs"], "launches": run["launches"],
+           "expected_launches": dict(want), "levels": levels,
+           "versions_run": versions, "version_switches": switches,
+           "max_partition": max(sums),
+           "partition_ticks": len(m.partition_trace),
+           "counter_sources": dict(rt.counter_sources),
+           "serve_wall_s": run["wall_s"]}
+    report(f"{what}: {m.aggregate.n_queries} served over {rt.ticks} ticks; "
+           f"quanta {out['quanta']}, prefill chunks "
+           f"{out['prefill_chunks']}, decode steps {out['decode_steps']}; "
+           f"at most {max(sums)} of {hw.n_units} SMs granted in a tick, "
+           "pool whole after; 0 captures; host syncs "
+           f"{run['host_syncs']}; levels (grid index: quanta) {levels}; "
+           f"versions run {versions}, switched mid-serve {switches} times; "
+           "launches " + ", ".join(f"{k} {v} ({why.get(k)})"
+                                   for k, v in run["launches"].items()))
+    return out
+
+
+def solo_replay(tenants, run, report) -> dict:
+    """Each request of a co-located serve served again alone on its own
+    (idle) engine, through the code versions and the steps it met in the
+    serve: its chunks one by one, then a decode quantum of the steps it
+    took in each quantum it ran in.  Its token stream must be the one the
+    co-located serve gave it."""
+    from repro_torch.serving.engine import Request
+
+    rt, wl, calls = run["runtime"], run["workload"], run["calls"]
+    prompts = rt.tenant_prompts(wl)
+    lens = wl.prompt_lengths()
+    tenant_of = {rid: name for rid, (_, name) in
+                 enumerate(sorted(wl.arrivals))}
+    engines = {t.name: t.engine for t in tenants}
+    t0 = time.perf_counter()
+    same = 0
+    for rid in sorted(rt.outputs):
+        name = tenant_of[rid]
+        eng = engines[name]
+        require(eng.active_slots == 0, f"replay: {name} is not idle")
+        req = Request(rid=rid, prompt=prompts[name][rid, :lens[rid]],
+                      max_new_tokens=wl.max_new_tokens)
+        require(eng.admit_request(req), f"replay: {rid} not admitted")
+        for kind, level, key, steps in calls.ops[rid]:
+            eng.set_interference_level(level)
+            require(eng._entry.key == key, f"replay: {rid} at level {level} "
+                    "selects another version")
+            if kind == "chunk":
+                pq = eng.prefill_step()
+                require(pq is not None and pq.chunk == steps,
+                        f"replay: {rid} chunk {steps} ran as {pq}")
+                continue
+            handle = eng.begin_quantum(steps)
+            require(handle is not None and int(handle.n_left.sum()) == steps,
+                    f"replay: {rid} quantum of {steps} steps")
+            eng.finish_quantum(handle)
+        require(req.done, f"replay: request {rid} did not finish")
+        same += req.output == rt.outputs[rid]
+    replay_s = time.perf_counter() - t0
+    require(same == len(rt.outputs),
+            f"replay: {same} of {len(rt.outputs)} co-located token streams "
+            "equal the streams served alone")
+    report(f"cluster solo replay: {same} of {len(rt.outputs)} co-located "
+           "token streams equal the streams each request gives served alone "
+           f"on its engine through the same versions and steps "
+           f"({replay_s:.1f} s)")
+    return {"equal": same, "requests": len(rt.outputs),
+            "replay_s": replay_s}
+
+
+def cluster_wall_report(what, run, busy_run, card, report) -> dict:
+    """What a wall-clock cluster serve measured: per-engine level traces,
+    wall per tick, the runtime's own host time per tick, latencies per
+    tenant, qos_rate and qps_at_qos against the plans' QoS (derived from
+    the H100 spec's analytic solo latency), tokens/s per engine; from the
+    serve's own CUDA events the streams' activity: the device's idle
+    share (1 - the union of the streams' active time over the wall) and
+    the overlap (the sum of each stream's active time over their union:
+    1.0 when nothing overlapped); and from a profiled rerun ``busy_run``
+    (None: not profiled) the same two from the kernels' busy time."""
+    rt, m = run["runtime"], run["metrics"]
+    ticks = max(rt.ticks, 1)
+    levels = {a: dict(sorted(collections.Counter(
+        cm_idx(x) for x in tr).items())) for a, tr in m.level_traces.items()}
+    per = {}
+    for a, tm in m.per_tenant.items():
+        per[a] = {"queries": tm.n_queries,
+                  "avg_latency_ms": tm.avg_latency_s * 1e3,
+                  "p99_latency_ms": tm.p99_latency_s * 1e3,
+                  "avg_ttft_ms": tm.avg_ttft_s * 1e3,
+                  "qos_rate": tm.qos_rate, "qps_at_qos": tm.qps_at_qos,
+                  "qos_ms": rt.tenants[[t.name for t in rt.tenants].index(
+                      a)].plan.qos_s * 1e3,
+                  "tokens_per_s": run["tokens"][a] / run["wall_s"]}
+    agg = m.aggregate
+    out = {"card": card, "serve_wall_s": run["wall_s"], "ticks": rt.ticks,
+           "wall_per_tick_ms": run["wall_s"] * 1e3 / ticks,
+           "runtime_host_ms_per_tick": (run["wall_s"] - run["calls"].inside_s)
+           * 1e3 / ticks,
+           "levels": levels,
+           "levels_leave_0": {a: any(x > 0 for x in tr)
+                              for a, tr in m.level_traces.items()},
+           "counter_sources": dict(rt.counter_sources),
+           "proxy_refits": agg.refit_count,
+           "aggregate": {"avg_latency_ms": agg.avg_latency_s * 1e3,
+                         "p99_latency_ms": agg.p99_latency_s * 1e3,
+                         "qos_rate": agg.qos_rate,
+                         "qps_at_qos": agg.qps_at_qos},
+           "per_tenant": per, "quanta": dict(m.quanta)}
+    act = run["activity"]
+    if act and act["union_active_ms"]:
+        out["activity"] = {
+            "union_active_ms": act["union_active_ms"],
+            "stream_active_ms": act["stream_active_ms"],
+            "device_idle_share": max(0.0, 1.0 - act["union_active_ms"]
+                                     / (run["wall_s"] * 1e3)),
+            "overlap": act["sum_stream_active_ms"] / act["union_active_ms"]}
+    busy = busy_run["busy"] if busy_run else None
+    if busy and busy["union_busy_ms"]:
+        out["profiled"] = {
+            "device_busy_ms": busy["union_busy_ms"],
+            "stream_busy_ms": busy["stream_busy_ms"],
+            "device_idle_share_profiled": max(
+                0.0, 1.0 - busy["union_busy_ms"] / (busy_run["wall_s"] * 1e3)),
+            "device_idle_share": max(0.0, 1.0 - busy["union_busy_ms"]
+                                     / (run["wall_s"] * 1e3)),
+            "overlap": busy["sum_stream_busy_ms"] / busy["union_busy_ms"],
+            "profiled_wall_s": busy_run["wall_s"],
+            "profiled_ticks": busy_run["runtime"].ticks,
+            "trace_processing_s": busy_run["trace_s"]}
+    report(f"{what} [{card}]: {agg.n_queries} served in "
+           f"{run['wall_s']:.3f} s over {rt.ticks} ticks: wall per tick "
+           f"{out['wall_per_tick_ms']:.3f} ms, runtime host "
+           f"{out['runtime_host_ms_per_tick']:.3f} ms per tick; latency avg "
+           f"{out['aggregate']['avg_latency_ms']:.2f} ms, p99 "
+           f"{out['aggregate']['p99_latency_ms']:.2f} ms, qos_rate "
+           f"{agg.qos_rate:.4f}, qps_at_qos {agg.qps_at_qos:.3f}; "
+           f"counter sources {out['counter_sources']}, proxy refits "
+           f"{agg.refit_count}")
+    report(f"{what} [{card}]: per tenant " + "; ".join(
+        f"{a} n {v['queries']} avg {v['avg_latency_ms']:.2f} ms p99 "
+        f"{v['p99_latency_ms']:.2f} ms ttft {v['avg_ttft_ms']:.2f} ms "
+        f"qos {v['qos_ms']:.3f} ms qos_rate {v['qos_rate']:.4f} "
+        f"qps_at_qos {v['qps_at_qos']:.3f} tokens/s "
+        f"{v['tokens_per_s']:.1f}" for a, v in per.items()))
+    report(f"{what} [{card}]: levels (grid index: quanta) {levels}; leave "
+           f"level 0: {out['levels_leave_0']}")
+    a = out.get("activity")
+    if a:
+        report(f"{what} [{card}]: stream activity (CUDA events around each "
+               f"dispatch): union {a['union_active_ms']:.1f} ms of "
+               f"{run['wall_s'] * 1e3:.1f} ms wall: idle share "
+               f"{a['device_idle_share']:.4f}; per stream " + ", ".join(
+                   f"{k} {v:.1f}" for k, v in a["stream_active_ms"].items())
+               + f" ms: overlap {a['overlap']:.4f}")
+    else:
+        report(f"{what} [{card}]: no stream activity recorded (idle share "
+               "and overlap not measured)")
+    b = out.get("profiled")
+    if b:
+        report(f"{what} [{card}]: profiled rerun ({b['profiled_ticks']} "
+               f"ticks, {b['profiled_wall_s']:.3f} s under torch.profiler): "
+               f"kernel busy {b['device_busy_ms']:.1f} ms (union): idle share "
+               f"{b['device_idle_share_profiled']:.4f} of the profiled wall, "
+               f"{b['device_idle_share']:.4f} against the unprofiled serve's "
+               "wall; per stream " + ", ".join(
+                   f"{k} {v:.1f}" for k, v in b["stream_busy_ms"].items())
+               + f" ms: overlap {b['overlap']:.4f} (reading the trace took "
+               f"{b['trace_processing_s']:.1f} s)")
+    elif busy_run is not None:
+        report(f"{what} [{card}]: torch.profiler recorded no device time "
+               "(kernel busy not measured)")
+    return out
+
+
+def serve_cluster(dev, counters, report, seed, card) -> dict:
+    """Phase 9: gemma-2b, starcoder2-3b and mamba2-780m at full width on
+    one card, each engine on its own CUDA stream, under ClusterRuntime
+    with the H100 spec's plans."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.multiversion import V_MAX
+    from repro_torch.core.scheduler import PremaPolicy, VeltairPolicy
+    from repro_torch.kernels import block_matmul as bmk
+    from repro_torch.serving.cluster import ClusterRuntime, build_cluster
+    from repro_torch.serving.engine import H100_LEVEL_TILES
+    from repro_torch.serving.tenants import cluster_plans
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    hw = cm.hardware_spec_for(dev)
+    report(f"cluster: {hw.name} spec matches the card: {hw.n_units} SMs, "
+           f"{hw.private_cache_bytes} bytes of shared memory per block, L2 "
+           f"{hw.shared_cache_bytes} bytes; level switch "
+           f"{hw.realloc_overhead_s * 1e6:.2f} us, node gap "
+           f"{hw.serial_overhead_s * 1e6:.3f} us")
+    plans = cluster_plans(list(CL_ARCHS), hw)
+    run_plans = two_version_plans(plans, hw)
+    built = {(m, k, n) for m in bmk.BM_CHOICES for k in bmk.BK_CHOICES
+             for n in bmk.BN_CHOICES}
+    # the tiles check_kernels held against the plain version
+    checked = {(t["matmul"]["bm"], t["matmul"]["bk"], t["matmul"]["bn"])
+               for t in H100_LEVEL_TILES}
+    out["plans"], out["run_plans"] = {}, {}
+    for key, table, what in (("plans", plans, "plan"),
+                             ("run_plans", run_plans, "run plan")):
+        for arch, plan in table.items():
+            src = max(plan.version_sets,
+                      key=lambda vs: vs.solo_version().flops)
+            versions = [(v.bm, v.bk, v.bn) for v in src.versions]
+            per_level = [src.select(cm.level_interference(cm.grid_point(i)))
+                         for i in range(cm.NUM_LEVELS)]
+            per_level = [(v.bm, v.bk, v.bn) for v in per_level]
+            require(set(versions) <= built and len(versions) <= V_MAX,
+                    f"cluster: {arch}'s versions {versions} are not built "
+                    "tiles")
+            require(set(versions) <= checked, f"cluster: {arch}'s versions "
+                    f"{versions} were not held against the plain version")
+            out[key][arch] = {"qos_ms": plan.qos_s * 1e3,
+                              "tile_source": src.layer_name,
+                              "versions": versions,
+                              "tile_per_level": per_level}
+            report(f"cluster {what} {arch}: qos {plan.qos_s * 1e3:.3f} ms "
+                   f"(3x the analytic solo latency on {hw.name}); tile "
+                   f"source {src.layer_name} versions (bm, bk, bn) "
+                   f"{versions}; level 0..9 selects {per_level}")
+    cfgs = {a: get_config(a) for a in CL_ARCHS}
+    sc2 = cfgs["starcoder2-3b"]
+    require(all(getattr(sc2, k) == v for k, v in CL_STARCODER2.items()),
+            f"cluster: starcoder2-3b is not at full width: {sc2}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tenants = build_cluster(list(CL_ARCHS), hw, batch_slots=BATCH_SLOTS,
+                            max_len=MAX_LEN, seed=seed, plans=run_plans,
+                            configs=cfgs, device=dev)
+    torch.cuda.synchronize()
+    engines = {t.name: t.engine for t in tenants}
+    streams = {t.engine.stream for t in tenants}
+    require(len(streams) == len(tenants) and None not in streams,
+            "cluster: the engines do not run on streams of their own")
+    # the host cost of entering an engine's stream (every device-facing
+    # engine call does)
+    s0 = tenants[0].engine.stream
+    t0 = time.perf_counter()
+    for _ in range(STREAM_ENTRIES):
+        with torch.cuda.stream(s0):
+            pass
+    out["stream_entry_us"] = ((time.perf_counter() - t0) * 1e6
+                              / STREAM_ENTRIES)
+    report(f"cluster: entering and leaving an engine's stream costs "
+           f"{out['stream_entry_us']:.2f} us of host (mean of "
+           f"{STREAM_ENTRIES})")
+    weights = {t.name: sum(a.numel() * a.element_size() for a in
+                           _leaves(t.engine.params)) for t in tenants}
+    out["build"] = {"seconds": time.perf_counter() - t0,
+                    "weight_bytes": weights,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    report(f"cluster: {len(tenants)} engines built in "
+           f"{out['build']['seconds']:.1f} s (weights made on the card: "
+           + ", ".join(f"{a} {b / 1e9:.2f} GB" for a, b in weights.items())
+           + "); peak device memory "
+           f"{out['build']['max_memory_allocated'] / 2**30:.2f} GiB")
+    warm = {}
+    for t in tenants:
+        fn = t.engine.warmup
+
+        def timed_warmup(*args, _fn=fn, _t=t, **kw):
+            torch.cuda.synchronize()
+            m0, w0 = torch.cuda.memory_allocated(), time.perf_counter()
+            stats = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            vc = _t.engine.version_cache
+            warm[_t.name] = {
+                "seconds": time.perf_counter() - w0,
+                "captures": sum(c.graph is not None
+                                for c in vc._calls.values()),
+                "capture_s": vc.capture_s, "stats": stats,
+                "allocated_bytes_delta": torch.cuda.memory_allocated() - m0}
+            return stats
+        t.engine.warmup = timed_warmup
+    # starcoder2-3b at full width, kernels against plain versions on the
+    # cluster's weights (gemma-2b's and mamba2-780m's run in phases 3-5)
+    sc2_prompt = np.random.default_rng(seed).integers(
+        0, sc2.vocab_size, 16).astype(np.int32)
+    out["whole_model_starcoder2"] = whole_model_check(
+        sc2, engines["starcoder2-3b"].params, sc2_prompt, dev, report)
+    try:
+        ClusterRuntime(tenants, VeltairPolicy(hw), hw).warmup()
+    finally:
+        for t in tenants:
+            t.engine.__dict__.pop("warmup", None)
+    for t in tenants:
+        distinct = {str(t.engine.tiles_for_level(cm.grid_point(i)))
+                    for i in range(cm.NUM_LEVELS)}
+        w = warm[t.name]
+        per_version = (1 + len(t.engine.quantum_buckets)
+                       + len(t.engine.prefill_buckets))
+        require(len(distinct) == 2 and
+                w["captures"] == len(distinct) * per_version,
+                f"cluster: {t.name} captured {w['captures']} graphs for "
+                f"{len(distinct)} versions")
+    out["warmup"] = warm
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    report("cluster warmup: " + "; ".join(
+        f"{a} {w['captures']} CUDA graphs ({w['stats']['entries']} "
+        f"versions) in {w['seconds']:.2f} s, +"
+        f"{w['allocated_bytes_delta'] / 2**20:.1f} MiB"
+        for a, w in warm.items())
+        + f"; peak device memory {out['max_memory_allocated'] / 2**30:.2f} "
+        "GiB")
+    expected = cluster_launches(cfgs)
+
+    run_a = cluster_serve(tenants, hw, VeltairPolicy, seed, counters)
+    out["virtual"] = check_cluster_serve(
+        "cluster virtual time (Veltair, oracle counters)", run_a, hw,
+        expected, report)
+    out["virtual"]["metrics_workload_time"] = {
+        a: metrics_summary(v) for a, v in run_a["metrics"].per_tenant.items()}
+    out["launches"] = dict(run_a["launches"])
+    switched = out["virtual"]["versions_run"]
+    require(all(n == 2 for n in switched.values()),
+            f"cluster virtual time: versions run {switched}: an engine "
+            "never switched its version mid-serve")
+    out["solo_replay"] = solo_replay(tenants, run_a, report)
+
+    def wall_pair(what, tenants, policy, profile=False):
+        run = cluster_serve(tenants, hw, policy, seed, counters,
+                            wall_clock=True)
+        checks = check_cluster_serve(what, run, hw, expected, report)
+        prof = (cluster_serve(tenants, hw, policy, seed, counters,
+                              wall_clock=True, profile=True)
+                if profile else None)
+        res = cluster_wall_report(what, run, prof, card, report)
+        res["checks"] = checks
+        return run, res
+
+    _, out["veltair"] = wall_pair("cluster wall clock (Veltair, measured "
+                                  "counters, a stream per engine)", tenants,
+                                  VeltairPolicy, profile=True)
+    prema, out["prema"] = wall_pair("cluster wall clock (PREMA, measured "
+                                    "counters, a stream per engine)",
+                                    tenants, PremaPolicy)
+    exclusive = all(sum(1 for g in part.values() if g > 0) <= 1
+                    for part in prema["runtime"].partition_trace)
+    require(exclusive, "cluster PREMA: a tick granted units to two engines")
+    out["prema"]["exclusive"] = exclusive
+    report("cluster: PREMA's quanta exclusive (one engine granted per tick)")
+    # the serialized serve: the same weights and plans in three engines
+    # built on one shared stream, warmed before they serve
+    shared = torch.cuda.Stream(dev)
+    one = build_cluster(list(CL_ARCHS), hw, batch_slots=BATCH_SLOTS,
+                        max_len=MAX_LEN, seed=seed, plans=run_plans,
+                        configs=cfgs, device=dev, stream=shared,
+                        params={t.name: t.engine.params for t in tenants})
+    require({t.engine.stream for t in one} == {shared},
+            "cluster: the serialized engines do not share one stream")
+    t0 = time.perf_counter()
+    ClusterRuntime(one, VeltairPolicy(hw), hw).warmup()
+    torch.cuda.synchronize()
+    out["serialized_warmup_s"] = time.perf_counter() - t0
+    # serve A again on them: the same traces and token streams as on
+    # separate streams, and counter banks as warm as serve B's engines'
+    # (a cold bank reads oracle counters)
+    run_one = cluster_serve(one, hw, VeltairPolicy, seed, counters)
+    check_cluster_serve("cluster virtual time (Veltair, oracle counters, "
+                        "one stream)", run_one, hw, expected, report)
+    for what in ("outputs", "sched_trace"):
+        require(getattr(run_one["runtime"], what)
+                == getattr(run_a["runtime"], what),
+                f"cluster: one stream's {what} differ from separate streams'")
+    require(run_one["metrics"].partition_trace
+            == run_a["metrics"].partition_trace,
+            "cluster: one stream's partition trace differs")
+    report("cluster virtual time: one stream gives separate streams' "
+           "outputs, schedule and partition traces")
+    _, out["serialized"] = wall_pair(
+        "cluster wall clock (Veltair, measured counters, one stream)", one,
+        VeltairPolicy)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"cluster: the one-stream engines warmed in "
+           f"{out['serialized_warmup_s']:.1f} s; phase 9 took "
+           f"{out['phase_s']:.1f} s")
+    del tenants, engines, one, prema, run_a, run_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2287,6 +3096,8 @@ def main() -> int:
     served, prof, model_check, host = {}, {}, {}, {}
     for name in ("gemma-2b", "mamba2-780m"):
         cfg = get_config(name)
+        if cfg.ssm is not None:
+            cfg = dataclasses.replace(cfg, num_layers=MAMBA2_EARLY_LAYERS)
         t0 = time.perf_counter()
         params = Model(cfg).init(torch.Generator(device=dev).manual_seed(
             args.seed), dev)
@@ -2319,8 +3130,12 @@ def main() -> int:
             served[name]["runtime"] = serve_runtime_dense(
                 eager, engine, cfg, counters, report, args.seed, card)
         served[name]["level_sweep"] = level_sweep(engine, prompts, report)
-        served[name]["pairs"] = eager_graph_pairs(
-            eager, engine, prompts, report, groups, chunk=True)
+        served[name]["pairs"] = engine_pairs(
+            {"eager": eager, "graphs": engine}, prompts, report, groups,
+            chunk=True)
+        if cfg.ssm is None:
+            served[name]["stream_pairs"] = stream_pairs(
+                engine, cfg, params, prompts, dev, report, groups)
         host[name] = host_profile(eager, prompts, report)
         prof[name] = {}
         if cfg.ssm is not None:
@@ -2347,6 +3162,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     times = (timings(dev, gen, report) + ssd_timings(dev, gen, report)
              + paged_timings(dev, gen, report))
+    cluster = serve_cluster(dev, {"block_matmul": bm.LAUNCHES,
+                                  "flash_attention": fa.LAUNCHES,
+                                  "ssd_scan": ssd.LAUNCHES},
+                            report, args.seed, card)
 
     kernels = []
     for name, src, replaces, model in (
@@ -2364,6 +3183,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(served[model]["launches"][name].values()),
+            "cluster_launches": cluster["launches"].get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -2371,7 +3191,7 @@ def main() -> int:
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
-        "ssd_phases": ssd_phases,
+        "ssd_phases": ssd_phases, "cluster": cluster,
         "kernels": kernels, "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,20 @@
 Holds the configs ported so far (the dense and ssm families).
 ``get_config(name)`` returns the published config; ``get_reduced_config``
 applies the same reduction rules as ``repro.configs.get_reduced_config``
-(few layers, narrow widths, tiny vocab) for CPU tests.
+(few layers, narrow widths, tiny vocab) for CPU tests; ``get_shape(name)``
+returns an assigned input-shape cell (the co-location plans compile
+against ``decode_32k``).
+
+``get_shape`` is the function :func:`shape_config` under the reference's
+name: the repository's static analyzer resolves the reference's ``from
+repro.configs import get_shape`` by that function name being unique.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import gemma_2b, mamba2_780m, starcoder2_3b
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (gemma_2b, mamba2_780m, starcoder2_3b)
@@ -23,6 +29,15 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return _REGISTRY[name]
+
+
+def shape_config(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {tuple(SHAPES)}")
+    return SHAPES[name]
+
+
+get_shape = shape_config
 
 
 def get_reduced_config(name: str) -> ModelConfig:
@@ -48,4 +63,5 @@ def get_reduced_config(name: str) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ModelConfig", "ARCH_NAMES", "get_config", "get_reduced_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_NAMES", "get_config",
+           "get_reduced_config", "get_shape"]

@@ -15,6 +15,11 @@ class of the reference's name would merge with the reference's.  For the
 same reason the reference's ``Interference.from_level`` is the function
 :func:`level_interference` here: the analyzer resolves the reference's
 calls of ``from_level`` by that method name being unique.
+
+Beyond the reference's two platforms the port keeps the spec of the card
+it runs on, :data:`H100_SXM`, whose units are streaming multiprocessors
+(``unit="sm"``); :func:`hardware_spec_for` returns it after checking the
+card against it.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class TorchHardwareSpec:
     name: str
-    n_units: int                 # cores (CPU) or chips (TPU sub-mesh pool)
-    unit: str                    # "core" | "chip"
+    n_units: int                 # cores (CPU), chips (TPU sub-mesh pool)
+                                 # or SMs (GPU)
+    unit: str                    # "core" | "chip" | "sm"
     flops_per_unit: float        # peak FLOP/s per unit
     private_cache_bytes: float   # L2 per core / VMEM per chip (tile must fit)
     shared_cache_bytes: float    # LLC (CPU); 0 => no shared cache (TPU)
@@ -51,6 +57,14 @@ class TorchHardwareSpec:
 
 HardwareSpec = TorchHardwareSpec
 
+
+# Measured on the card by ``chip_smoke.py`` (NVIDIA H100 80GB HBM3 at
+# 700 W, full-width gemma-2b): a level switch between two captured
+# versions, a dictionary swap of CUDA graphs (12.25 us, mean of 200 in
+# the level sweep), and the mean idle gap between consecutive device ops
+# of a graphed 8-step decode quantum (0.442 us, torch.profiler).
+H100_SWITCH_S = 12.25e-6
+H100_NODE_GAP_S = 0.442e-6
 
 # Paper platform: AMD Threadripper 3990X, 64 cores, AVX2 @2.9GHz,
 # 256 MB LLC, quad-channel DDR4-3200 (~100 GB/s), ~1 TB/s aggregate LLC bw.
@@ -82,6 +96,60 @@ TPU_V5E_POD = HardwareSpec(
     amdahl_serial=0.01,
     eff_base=0.45, eff_slope=0.05, eff_min=0.30, eff_max=0.85,
 )
+
+
+# The port's card: one NVIDIA H100 SXM5 as the shared multi-tenant
+# resource, its SMs the units the cluster partitions.  The shared cache is
+# the L2 co-runners fight over, so the cost model's shared-cache branches
+# apply (HBM bandwidth is one pool, not scaled by units).
+H100_SXM = HardwareSpec(
+    name="h100-sxm", n_units=132, unit="sm",     # H100 SXM5 datasheet: 132 SMs
+    flops_per_unit=989e12 / 132,     # H100 SXM5 datasheet: 989 TFLOP/s
+                                     # dense bf16, over the SMs
+    private_cache_bytes=232_448,     # largest dynamic shared memory of a
+                                     # block (227 KiB opt-in, H100 SXM5
+                                     # datasheet), what the kernels size to
+    shared_cache_bytes=50 * 2**20,   # H100 SXM5 datasheet: 50 MB L2 (the
+                                     # card reports 50 MiB)
+    shared_bw=3.35e12,               # H100 SXM5 datasheet: HBM3 3.35 TB/s
+    link_bw=0.0,                     # one card: no collective term
+    realloc_overhead_s=H100_SWITCH_S,
+    serial_overhead_s=H100_NODE_GAP_S,
+    amdahl_serial=0.01,
+    # the efficiency curve (and the serial fraction) are TPU_V5E_POD's:
+    # calibrating them against the card's measured solo speed is open
+    eff_base=0.45, eff_slope=0.05, eff_min=0.30, eff_max=0.85,
+)
+
+
+def hardware_spec_for(device=None) -> HardwareSpec:
+    """The spec of the card ``device`` names (``None`` means the current
+    CUDA device): :data:`H100_SXM`, after checking its SM count, a
+    block's opt-in shared memory (where torch reports it) and its L2
+    against the constant.  Raises on a mismatch or a device with no spec;
+    never substitutes another spec."""
+    import torch
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"no hardware spec for device {dev}: the port "
+                         "models the card it runs on (pass a HardwareSpec, "
+                         "e.g. CPU_3990X, for an analytic CPU plan)")
+    props = torch.cuda.get_device_properties(dev)
+    got = {"n_units": props.multi_processor_count,
+           "private_cache_bytes": getattr(props,
+                                          "shared_memory_per_block_optin",
+                                          None),
+           "shared_cache_bytes": getattr(props, "L2_cache_size", None)}
+    spec = H100_SXM
+    bad = {k: v for k, v in got.items()
+           if v is not None and v != getattr(spec, k)}
+    if bad:
+        raise ValueError(
+            f"{props.name}: " + ", ".join(
+                f"{k} {v} (the {spec.name} spec has {getattr(spec, k)})"
+                for k, v in bad.items())
+            + "; the port has no spec for this card")
+    return spec
 
 
 @dataclasses.dataclass(frozen=True)

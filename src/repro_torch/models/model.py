@@ -21,6 +21,7 @@ of per-row positions (continuous batching).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -48,6 +49,36 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
 
 # the families the port serves; each stacks one block kind of its name
 FAMILIES = ("dense", "ssm")
+
+
+@dataclasses.dataclass
+class TorchLayerPlan:
+    """How cfg.num_layers decomposes into scanned stacks / unrolled layers
+    (the reference's ``LayerPlan``; the port runs every stack as a loop,
+    but the layer profiles read the decomposition)."""
+    prologue: tuple[str, ...]          # unrolled kinds before the scan
+    scan_kinds: tuple[str, ...]        # kinds inside one scanned group
+    n_groups: int
+    epilogue: tuple[str, ...]          # unrolled kinds after the scan
+
+
+LayerPlan = TorchLayerPlan
+
+
+def plan_layers(cfg: ModelConfig) -> LayerPlan:
+    """The reference's ``make_plan`` for the families the port serves:
+    one stack of ``cfg.num_layers`` blocks of the family's kind."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the {FAMILIES} families only "
+            f"(got {cfg.family!r})")
+    return LayerPlan((), (cfg.family,), cfg.num_layers, ())
+
+
+# the reference's name, bound without a second ``def``: the repository's
+# static analyzer resolves the reference's ``from repro.models.model import
+# make_plan`` by the function name being unique
+make_plan = plan_layers
 
 
 def _block_specs(cfg: ModelConfig) -> dict:

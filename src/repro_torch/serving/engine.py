@@ -25,8 +25,19 @@ when the prompt finishes.
 The VELTAIR integration point: ``set_interference_level`` selects the
 code version (kernel tiles) for the current pressure and swaps in its
 :class:`~repro_torch.serving.version_cache.VersionCache` entry; the
-tiles reach every kernel launch of the entry's calls.  The built-in
-table is :data:`H100_LEVEL_TILES`.
+tiles reach every kernel launch of the entry's calls.  The tiles come
+from the dominant layer's multi-version table when the engine is given
+``version_sets`` (a plan compiled by the adaptive compiler, e.g. for
+``cost_model.H100_SXM``), else from a level ladder, else from the
+built-in :data:`H100_LEVEL_TILES`.  On the card every version of that
+table must be a tile ``block_matmul`` is built for, or construction
+raises.
+
+Streams: on the card every device operation of an engine (admission and
+row copies, the staged inputs, graph replays, the host sync's copy) runs
+on the engine's own CUDA stream (``stream=``; a new one by default), so
+engines that share a card overlap their work instead of serializing on
+the default stream.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and an
 engine raises ``RuntimeError`` when CUDA is absent unless the caller asks
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -55,7 +67,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
 from repro_torch.core.counters import CounterBank
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import block_matmul, dispatch
 from repro_torch.models.model import Model, cache_batch_axis
 from repro_torch.models.params import tree_map_with_path
 from repro_torch.serving.paging import TRASH_PAGE, PagePool
@@ -105,6 +117,17 @@ def _leaf(tree: dict, path: tuple[str, ...]):
     for key in path:
         tree = tree[key]
     return tree
+
+
+def on_engine_stream(method):
+    """Run an engine method with the engine's stream as the current CUDA
+    stream (``torch.cuda.stream(None)`` on a CPU engine changes
+    nothing)."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with torch.cuda.stream(self.stream):
+            return method(self, *args, **kw)
+    return run
 
 
 def resolve_device(device) -> torch.device:
@@ -211,7 +234,8 @@ class QuantumHandle:
     """An in-flight fused dispatch quantum: ``block`` is still an
     on-device (possibly not yet computed) tensor, the engine's own copy
     (a graph's output buffer is rewritten by later replays, so it is
-    copied out on the stream right after the replay);
+    copied out on the stream right after the replay), written on the
+    engine's stream: read it there or after that stream;
     ``finish_quantum`` performs the single device->host sync and the
     bookkeeping."""
     block: torch.Tensor            # (K, B) on-device token block
@@ -233,12 +257,19 @@ class TorchServingEngine:
                  prefill_chunk_len: int = PREFILL_CHUNK_LEN,
                  page_size: int | None = None, n_pages: int | None = None,
                  page_reserve: str = "worst", prefix_sharing: bool = True,
-                 ladder=None, device=None, cuda_graphs: bool = True):
+                 ladder=None, device=None, cuda_graphs: bool = True,
+                 version_sets: list | None = None, stream=None):
         """``cuda_graphs=False`` runs every entry point eagerly on the
         card (the same static buffers, no capture): the eager side of an
         eager/graph comparison.  On the CPU nothing is captured either
-        way."""
+        way.  ``version_sets``: the plan's multi-version tables (the
+        dominant layer's becomes the tile source).  ``stream``: the CUDA
+        stream the engine's work runs on (None: a new stream of its own;
+        engines given one stream serialize)."""
         self.device = resolve_device(device)
+        self.stream = (None if self.device.type != "cuda" else stream
+                       if stream is not None else torch.cuda.Stream(
+                           self.device))
         self.cfg = cfg
         self.model = Model(cfg)
         self.params = tree_map_with_path(lambda _, a: a.to(self.device),
@@ -314,9 +345,30 @@ class TorchServingEngine:
         # slots interleave)
         self._inputs = StepInputs(batch_slots, max_len, self.device)
         self._row = self.model.init_cache(1, max_len, self.device)
-        # tiles: an autotuned level ladder (the ``ladder`` argument — a
-        # LadderSpec or its raw levels list — else the process-global
-        # ladder, snapshotted now), else H100_LEVEL_TILES
+        # tiles: the dominant layer's multi-version table when version sets
+        # are given (on the card each of its versions must be a tile the
+        # kernel is built for: no fallback to another table), else an
+        # autotuned level ladder (the ``ladder`` argument — a LadderSpec
+        # or its raw levels list — else the process-global ladder,
+        # snapshotted now), else H100_LEVEL_TILES
+        self.version_sets = version_sets
+        self._tile_source = (max(version_sets,
+                                 key=lambda vs: vs.solo_tuned().flops)
+                             if version_sets else None)
+        if self._tile_source is not None and self.device.type == "cuda":
+            unbuilt = sorted({(v.bm, v.bk, v.bn)
+                              for v in self._tile_source.versions
+                              if v.bm not in block_matmul.BM_CHOICES
+                              or v.bk not in block_matmul.BK_CHOICES
+                              or v.bn not in block_matmul.BN_CHOICES})
+            if unbuilt:
+                raise ValueError(
+                    f"{cfg.name}: version set {self._tile_source.layer_name}"
+                    f" holds (bm, bk, bn) tiles {unbuilt} that block_matmul "
+                    f"is not built for (bm {block_matmul.BM_CHOICES}, bk "
+                    f"{block_matmul.BK_CHOICES}, bn "
+                    f"{block_matmul.BN_CHOICES}); compile the plan for the "
+                    "card's spec (cost_model.H100_SXM)")
         lad = ladder if ladder is not None else dispatch.active_ladder()
         if lad is not None and hasattr(lad, "levels"):
             lad = lad.levels
@@ -354,12 +406,20 @@ class TorchServingEngine:
         # occupancy telemetry (peak valid tokens, peak occupied slots)
         self.peak_cache_tokens = 0
         self.peak_active_slots = 0
-        self._use_version({})             # baseline: no overrides installed
+        # baseline: no overrides installed, or, given version sets, their
+        # level-0 version (the engine then only ever runs the plan's)
+        self._use_version(self.tiles_for_level(0.0)
+                          if self._tile_source is not None else {})
+        if self.stream is not None:
+            # the weights, caches and buffers were made on the caller's
+            # stream: the engine's first work waits for them
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
 
     # ------------------------------------------------------------------
     def _use_version(self, tiles: dict) -> None:
         entry = self.version_cache.get(tiles)
         self._entry = entry
+        self._entry_tiles = tiles
         self._prefill_one = entry.prefill
         self._prefill_chunk = entry.prefill_chunk
         self._decode = entry.decode
@@ -388,9 +448,29 @@ class TorchServingEngine:
 
     expected_accept_per_step = accept_per_step
 
+    @property
+    def speculative_stats(self) -> dict:
+        """Speculative-decode counters for the metrics (the reference's
+        keys; this engine runs no speculative quanta, so all zero)."""
+        return {"spec_quanta": 0, "spec_fallbacks": 0,
+                "tokens_drafted": self.tokens_drafted,
+                "tokens_accepted": self.tokens_accepted,
+                "draft_hit_rate": self.draft_acceptance,
+                "spec_rollbacks": self.spec_rollbacks}
+
+    spec_stats = speculative_stats
+
     def tiles_for_level(self, level: float) -> dict:
-        """The tile table selected at ``level``."""
-        idx = cm.level_to_idx(cm.level_interference(level).level)
+        """The tile table selected at ``level``: the tile source's version
+        for that pressure (a ``"matmul"`` table only; attention then runs
+        its default block, level 0's), else the ladder's or the built-in
+        table's level."""
+        itf = cm.level_interference(level)
+        if self._tile_source is not None:
+            v = self._tile_source.version_for_pressure(itf)
+            return {"matmul": {"bm": int(v.bm), "bk": int(v.bk),
+                               "bn": int(v.bn)}}
+        idx = cm.level_to_idx(itf.level)
         table = self._ladder if self._ladder is not None \
             else H100_LEVEL_TILES
         return {op: dict(kw) for op, kw in table[idx].items()}
@@ -410,17 +490,19 @@ class TorchServingEngine:
         self.interference_level = itf.level
         return {op: dict(kw) for op, kw in tiles.items()}
 
+    @on_engine_stream
     def warmup(self, prompt_lens: tuple[int, ...] = (),
                levels: list[float] | None = None,
                quantum_buckets: tuple[int, ...] | None = None) -> dict:
         """Build (capture, on the card) and run the entry points of every
-        interference level (default: the full grid) so later level
-        switches and steps build nothing: one decode per version, every
-        fused K-bucket, every prefill-chunk bucket, and a monolithic
-        prefill per length in ``prompt_lens``.  The warm quanta freeze
-        every row (``n_left`` 0), the warm decodes write position 0 of
-        every slot, and rows of resident requests are restored after.
-        Returns the version-cache stats."""
+        distinct version the interference levels select (default: the
+        full grid of levels) so later level switches and steps build
+        nothing: one decode per version, every fused K-bucket, every
+        prefill-chunk bucket, and a monolithic prefill per length in
+        ``prompt_lens``.  The warm quanta freeze every row (``n_left``
+        0), the warm decodes write position 0 of every slot, and rows of
+        resident requests are restored after.  Returns the version-cache
+        stats."""
         if levels is None:
             levels = [cm.grid_point(i) for i in range(cm.NUM_LEVELS)]
         buckets = (self.quantum_buckets if quantum_buckets is None
@@ -437,10 +519,14 @@ class TorchServingEngine:
             self._table_dirty = True
         inp = self._inputs
         zeros = np.zeros(self.slots, np.int64)
-        tile_tables = [self._active_tiles if self._active_tiles is not None
-                       else {}]
+        tile_tables = [self._entry_tiles]
         tile_tables += [self.tiles_for_level(lv) for lv in levels]
+        warmed: set = set()
         for entry in self.version_cache.warmup(tile_tables):
+            # levels that select one version warm it once
+            if entry.key in warmed:
+                continue
+            warmed.add(entry.key)
             inp.push(zeros, pos=zeros, n_left=zeros)
             # the calls update the cache in place and return it: adopting
             # it rebinds self.cache to the same tensors
@@ -710,6 +796,7 @@ class TorchServingEngine:
         else:
             self._write_row(slot, row)
 
+    @on_engine_stream
     def release_slot(self, slot: int) -> None:
         """Free a slot so the previous tenant's KV is unreachable.  Dense:
         write the pristine row over it.  Paged: drop the slot's page
@@ -879,6 +966,7 @@ class TorchServingEngine:
             rem -= b // 2
         return out
 
+    @on_engine_stream
     def admit_request(self, req: Request, *, drain: bool = False) -> bool:
         """Reserve a slot for ``req`` and queue its prefill chunks without
         running them (``prefill_step`` runs them); ``drain=True`` runs the
@@ -983,6 +1071,7 @@ class TorchServingEngine:
 
     should_prefill = prefill_turn
 
+    @on_engine_stream
     def prefill_step(self, slot: int | None = None) -> PrefillQuantum | None:
         """Run ONE prefill chunk for ``slot`` (default: the oldest slot
         still prefilling) into the slot's row cache.  Only the final chunk
@@ -1044,6 +1133,7 @@ class TorchServingEngine:
     # ------------------------------------------------------------------
     # Fused dispatch quanta
     # ------------------------------------------------------------------
+    @on_engine_stream
     def begin_quantum(self, k: int, *,
                       fused: bool = True) -> QuantumHandle | None:
         """Dispatch up to ``k`` decode steps for every active slot without
@@ -1101,6 +1191,7 @@ class TorchServingEngine:
                              active=active, t0=t0, traces0=traces0,
                              bucket=bucket, tiles=self._entry.key)
 
+    @on_engine_stream
     def finish_quantum(self, handle: QuantumHandle | None) -> list[Request]:
         """Block on a dispatched quantum — the single device->host sync —
         and do the bookkeeping: append each row's tokens, advance

@@ -133,13 +133,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "assert not bad, bad\n"
+        "new = ('repro_torch.serving.cluster', 'repro_torch.serving.tenants', "
+        "'repro_torch.core.profiles', 'repro_torch.configs')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20       # every module was imported
+    assert int(proc.stdout.strip()) >= 30       # every module was imported
 
 
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu():

@@ -17,6 +17,8 @@ attention kernel is held at the same 2e-2 against its plain version
 (gather, then dense attention).  The whole model
 compares logits after three residual layers of bf16 activations at 5e-2.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -575,6 +577,8 @@ def test_replayed_quantum_leaves_the_cache_bit_identical(cuda_device, case):
             assert eng.admit_request(Request(rid=i, prompt=p,
                                              max_new_tokens=8), drain=True)
         handle = eng.begin_quantum(4)
+        # the block is the engine's, on the engine's stream
+        eng.stream.synchronize()
         blocks.append(handle.block.clone())
         eng.finish_quantum(handle)
     assert torch.equal(blocks[0], blocks[1])
@@ -638,3 +642,112 @@ def test_runtime_serve_on_the_card_graphed_equals_eager(cuda_device, case):
                      m.n_queries, m.avg_latency_s, m.qos_rate))
     assert runs[0] == runs[1]
     assert len({cm.level_to_idx(x) for x in runs[1][1]}) > 1
+
+
+# ---------------------------------------------------------------------------
+# The H100 spec, its version space and the co-location cluster
+
+
+@pytest.mark.cuda
+def test_h100_spec_agrees_with_the_card_and_its_tiles_fit(cuda_device):
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core import schedule_space as ss
+    from repro_torch.core.profiles import lm_layers
+
+    hw = cm.hardware_spec_for(cuda_device)
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert hw is cm.H100_SXM and hw.n_units == props.multi_processor_count
+    tiles = set()
+    for arch in ("gemma-2b", "starcoder2-3b", "mamba2-780m"):
+        for shape in ("prefill_32k", "decode_32k"):
+            for layer in lm_layers(get_config(arch), get_shape(shape)):
+                tiles |= {(v.bm, v.bk, v.bn)
+                          for v in ss.enumerate_versions(layer, hw)}
+    assert tiles
+    for t in sorted(tiles):
+        assert 0 <= bm.smem_bytes(*t) <= hw.private_cache_bytes, t
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_a_version_set_of_unbuilt_tiles(cuda_device):
+    from repro_torch.serving.tenants import cluster_plan
+
+    cfg = get_reduced_config("gemma-2b")
+    params = Model(cfg).init(torch.Generator(device=cuda_device)
+                             .manual_seed(0), cuda_device)
+    cpu_plan = cluster_plan("gemma-2b", cm.CPU_3990X)
+    with pytest.raises(ValueError, match="not built for"):
+        ServingEngine(cfg, params, batch_slots=2, max_len=32,
+                      device=cuda_device,
+                      version_sets=cpu_plan.version_sets)
+    card_plan = cluster_plan("gemma-2b", cm.H100_SXM)
+    eng = ServingEngine(cfg, params, batch_slots=2, max_len=32,
+                        device=cuda_device,
+                        version_sets=card_plan.version_sets)
+    assert eng.tiles_for_level(1.0)["matmul"]["bk"] in bm.BK_CHOICES
+
+
+def two_version_plans(plans: dict, hw, tile=(128, 32, 64),
+                      from_level: int = 2) -> dict:
+    """Each plan with its tile source's version set (the layer of the
+    largest solo-version FLOPs, as the engine picks it) holding a second
+    built tile, selected from grid level ``from_level`` up: the H100
+    plans select one version at every level, so a serve under them never
+    switches."""
+    from repro_torch.core import schedule_space as ss
+
+    out = {}
+    for arch, plan in plans.items():
+        vsets = list(plan.version_sets)
+        i = max(range(len(vsets)),
+                key=lambda j: vsets[j].solo_version().flops)
+        second = next(v for v in ss.enumerate_versions(plan.layers[i], hw)
+                      if (v.bm, v.bk, v.bn) == tile)
+        vsets[i] = dataclasses.replace(
+            vsets[i], versions=[vsets[i].solo_version(), second],
+            level_table=[0] * from_level
+            + [1] * (cm.NUM_LEVELS - from_level))
+        out[arch] = dataclasses.replace(plan, version_sets=vsets)
+    return out
+
+
+@pytest.mark.cuda
+def test_cluster_on_streams_of_its_own_serves_the_one_stream_streams(
+        cuda_device):
+    """A reduced two-engine cluster (gemma-2b, mamba2-780m) on the card
+    whose plans hold two versions each: each engine on a stream of its
+    own, then the same weights on one shared stream; virtual-time serves
+    switch every engine's version mid-serve and give identical traces
+    and token streams."""
+    from repro_torch.core.scheduler import VeltairPolicy
+    from repro_torch.serving.cluster import ClusterRuntime, build_cluster
+    from repro_torch.serving.runtime import Workload
+    from repro_torch.serving.tenants import cluster_plans
+
+    archs = ["gemma-2b", "mamba2-780m"]
+    hw = cm.H100_SXM
+    plans = two_version_plans(cluster_plans(archs, hw), hw)
+    shared = torch.cuda.Stream(cuda_device)
+    runs, params = [], None
+    for stream in (None, shared):
+        tenants = build_cluster(archs, hw, batch_slots=2, max_len=64, seed=0,
+                                device=cuda_device, plans=plans,
+                                params=params, stream=stream)
+        params = {t.name: t.engine.params for t in tenants}
+        streams = {t.engine.stream for t in tenants}
+        assert len(streams) == (len(archs) if stream is None else 1)
+        rt = ClusterRuntime(tenants, VeltairPolicy(hw), hw)
+        rt.warmup()
+        builds = [t.engine.version_cache.traces for t in tenants]
+        wl = Workload.poisson(archs, 200, 8, prompt_len=20,
+                              prompt_len_spread=15, max_new_tokens=6, seed=1)
+        m = rt.serve(wl)
+        torch.cuda.synchronize()
+        assert m.aggregate.n_queries == wl.n_queries
+        assert [t.engine.version_cache.traces for t in tenants] == builds
+        for t in tenants:
+            ran = {str(t.engine.tiles_for_level(lv))
+                   for lv in m.level_traces[t.name]}
+            assert len(ran) == 2, (t.name, ran)
+        runs.append((rt.outputs, rt.sched_trace, m.partition_trace))
+    assert runs[0] == runs[1]
