@@ -17,13 +17,15 @@ Phases, each fatal on failure:
      tile of the H100 level table: B1 at M = 1, 4, 16 over gemma-2b's and
      starcoder2-3b's MLP GEMMs and a K that a cluster of 8 cannot split
      evenly, B2 with MQA and GQA at gemma-2b's heads and at starcoder2-3b's
-     (24 over 2 KV heads, D 128), decode rows at positions 0 and 511 and
-     16-token chunks, and every block B2 is built for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
+     (24 over 2 KV heads, D 128), decode rows at positions 0 and 511,
+     16-token chunks and a speculative verify pass (B 4, S 5), and every
+     block B2 is built for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
      monolithic prompt, B = 4 and ragged shapes, with B and C per group
      (G = 1, as the model passes them) and per head; ``flash_attention_paged``
      at page sizes 8, 16 and 32 over shuffled page tables at split 8, rows
      with no visible key, windowed and softcapped cases, gemma-2b's and
-     starcoder2-3b's head shapes, also against the dense kernel), plus
+     starcoder2-3b's head shapes, verify passes of five queries a row (also
+     past a full slot), also against the dense kernel), plus
      ragged shapes; every wrapper's shared-memory count held to the
      kernel's; with ``--b2-reference TREE`` every B2 output also equal to
      that checkout's B2 build bit for bit; then ``ssd_scan``'s phase
@@ -84,7 +86,8 @@ Phases, each fatal on failure:
      controller, in virtual time (admissions deferred on pages, exact
      launches, an empty pool) and in wall-clock mode, and the SLO
      scheduler's pick clamped to one step by a full pool;
-  8. times at the serve's shapes: kernel, plain version, one PyTorch call
+  8. times at the serve's shapes (B2 and B3 also at a verify pass's,
+     five queries a row): kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
      count of each launch (for B1 and B2 at each level), and B1 and its
@@ -114,7 +117,33 @@ Phases, each fatal on failure:
      warmed before they serve): latencies, wall and runtime host time per tick, tokens/s,
      levels, and the device's idle share and the streams' overlap from
      CUDA events around every dispatch (and from the kernels' busy time
-     in the profiled rerun).
+     in the profiled rerun);
+ 10. speculative decode quanta (run inside phases 3 and 6, on their
+     weights and their graphed engines as the plain side): speculative
+     engines (``speculative=True, spec_depth=SPEC_DEPTH``, warmed at the
+     levels the serves cycle: captures and seconds reported) for
+     gemma-2b dense, gemma-2b paged (against a plain paged engine built
+     here) and mamba2-780m at 24 layers serve two arms in 8-step quanta
+     while the level cycles: repetitive (constant-token prompts of
+     20-250 tokens on gemma-2b, echo prompts on mamba2-780m;
+     SPEC_REP_NEW new tokens) and adversarial (the serve's random
+     prompts, MAX_NEW new tokens), SPEC_PAIRS alternating plain/spec
+     serves each (wall, tokens/s, spec/plain, draft hit rate).  Fatal:
+     every stream equals the plain engine's or parts at a tie of the
+     plain logits (recomputed through a one-step decode) within
+     SPEC_TIE_ULPS bf16 ulps: two on gemma-2b, eight on mamba2-780m,
+     partings beyond two counted apart; verifies, accepted tokens and
+     rollbacks all above 0 per
+     configuration; exact launches (B1 54 and B2 18 per dense verify, B3
+     18 and B2 0 per paged verify, B4 2 x 24 per mamba2 verify, plus the
+     plain quanta and prefill chunks); an eager speculative serve equal
+     to the graphed one (streams, launches, ``spec_stats``); nothing
+     captured after warmup; the paged pool empty after; a verify with a
+     row at MAX_LEN - 1 - d beside a slot mid-prefill at MAX_LEN - 2
+     without a fault and the slot's cache unchanged; mamba2's restore
+     pass leaving the state of ``n_emit`` plain steps (bit-equal to the
+     state carried in where ``n_emit`` is 0).  Reported: one verify
+     quantum under torch.profiler against a 1-step plain quantum.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -297,11 +326,14 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     att_tiles = list({tuple(sorted(t["attention"].items())): t["attention"]
                       for t in H100_LEVEL_TILES}.values())
     # the serves' GEMMs at M = 1, 4 and 16 (gemma-2b's MLP, then
-    # starcoder2-3b's); K = 16576 = 259 tiles of 64, which a cluster of 8
-    # cannot split evenly; ragged shapes
+    # starcoder2-3b's); gemma-2b's MLP at M = 20, a speculative verify's
+    # 4 rows x (d + 1) tokens (a partial 16-row tile); K = 16576 = 259
+    # tiles of 64, which a cluster of 8 cannot split evenly; ragged shapes
     shapes = [(m, k, n) for m in (1, 4, 16)
               for k, n in ((2048, 16384), (16384, 2048), (3072, 12288),
                            (12288, 3072))]
+    shapes += [(BATCH_SLOTS * (SPEC_DEPTH + 1), k, n)
+               for k, n in ((2048, 16384), (16384, 2048))]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -349,6 +381,10 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
         ("starcoder2-3b prefill chunk", 1, 16, 24, 2, 128, [32], [48]),
         ("starcoder2-3b prefill chunk at 240", 1, 16, 24, 2, 128, [240],
          [256]),
+        # a speculative verify pass: d + 1 = 5 queries per row at the
+        # serve's positions
+        ("verify", 4, 5, 8, 1, 256, [68, 140, 260, 300],
+         [73, 145, 265, 305]),
     ]
     for name, b, s, h, kh, d, offs, kvls in cases:
         q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
@@ -463,8 +499,8 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     return worst
 
 
-def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3):
-    """bf16 q (B,1,H,D), K/V pools of B * MAX_LEN / ps pages plus the trash
+def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3, s=1):
+    """bf16 q (B,S,H,D), K/V pools of B * MAX_LEN / ps pages plus the trash
     page and a spare page, and a shuffled int32 page table.  Each row maps
     the pages that hold its ``kvl`` keys to physical pages drawn from a
     random permutation; its other entries point at the trash page or at
@@ -482,7 +518,7 @@ def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3):
     spare = int(perm[-1])
     table = torch.zeros(b, n_slot, dtype=torch.int32, device=dev)
     for i in range(b):
-        mapped = -(-int(kvl[i]) // ps)
+        mapped = min(-(-int(kvl[i]) // ps), n_slot)
         table[i, :mapped] = perm[i * n_slot:i * n_slot + mapped].int()
         pick = torch.randint(0, 2, (n_slot - mapped,), generator=gen,
                              device=dev)
@@ -494,7 +530,7 @@ def paged_inputs(gen, dev, b, h, kh, d, ps, kvl, garbage=1e3):
                                             device=dev).bfloat16()
             v_pool[ph, :rows] = torch.randn(rows, kh, d, generator=gen,
                                             device=dev).bfloat16()
-    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
     return q, k_pool, v_pool, table
 
 
@@ -526,23 +562,34 @@ def check_paged(dev, gen, report) -> float:
               (8, 1, 256, 32, 4, "full slot", 100, 30.0),
               (24, 2, 128, 16, 4, "ragged", None, None),
               (24, 2, 128, 8, 4, "full slot", 200, None)]
+    cases = [c + (1,) for c in cases]
+    # a speculative verify pass: d + 1 = 5 queries per row, at the serve's
+    # positions (the last query at kv_valid - 1), and rows whose queries
+    # run past a full slot (kv_valid beyond it, as a frozen row's may)
+    kvls["verify"] = [73, 145, 265, 305]
+    kvls["verify past the slot"] = [73, MAX_LEN + 3, 265, MAX_LEN + 4]
+    cases += [(8, 1, 256, ps, 4, name, None, None, 5) for ps in (8, 16)
+              for name in ("verify", "verify past the slot")]
     worst = worst_dense = 0.0
     splits = collections.Counter()
-    for h, kh, d, ps, b, name, window, softcap in cases:
+    for h, kh, d, ps, b, name, window, softcap, sq in cases:
         kvl = torch.tensor(kvls[name][:b], dtype=torch.int32, device=dev)
-        q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, ps, kvl)
-        off = kvl - 1
+        q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, ps, kvl,
+                                        s=sq)
+        off = kvl - sq
         kw = dict(offset=off, kv_valid_len=kvl, window=window,
                   softcap=softcap)
         got = fap.flash_attention_paged(q, kp, vp, table, **kw)
         again = fap.flash_attention_paged(q, kp, vp, table, **kw)
         torch.cuda.synchronize()
-        split, blocks = fap.launch_geometry(b, 1, h, kh, ps, table.shape[1])
+        split, blocks = fap.launch_geometry(b, sq, h, kh, ps,
+                                           table.shape[1])
         splits[split] += 1
         want = paged_attention_ref(q, kp, vp, table, **kw)
         ea, er, ok = errors(got, want)
         label = (f"flash_attention_paged H={h} K={kh} D={d} page {ps} B={b} "
-                 f"{name} window={window} softcap={softcap} split {split}")
+                 f"S={sq} {name} window={window} softcap={softcap} split "
+                 f"{split}")
         require(ok and bool(torch.isfinite(got).all()),
                 f"{label}: max abs err {ea:.4g}, max rel err {er:.4g} "
                 f"beyond {tol}")
@@ -606,14 +653,17 @@ def check_ssd(dev, gen, report) -> float:
     per-head copies of B and C: y within ATOL + RTOL*|plain|, the fp32
     final state within STATE_RTOL of its largest entry; each call launched
     twice and equal bit for bit; B and C per group (G = 1, mamba2-780m's
-    layout, as the model passes them) and per head (G = H).  The wrapper's
-    shared-memory count is held to the kernel's.  Returns the worst |y|
-    error."""
+    layout, as the model passes them) and per head (G = H).  The verify
+    case runs a speculative verify's scan: 4 rows of d + 1 tokens from a
+    carried state, dt zeroed past per-row budgets 0, 1, 3 and d + 1 (the
+    restore pass's ``valid_len = n_emit``); its row at budget 0 must keep
+    its state bit for bit.  The wrapper's shared-memory count is held to
+    the kernel's.  Returns the worst |y| error."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_ref
 
-    # (label, B, L, H, G, P, N, chunk, initial state)
+    # (label, B, L, H, G, P, N, chunk, initial state[, per-row budgets])
     cases = [(f"serve chunk L={l}", 1, l, 48, 1, 64, 128, 256, True)
              for l in (2, 4, 8, 16)]
     cases += [("serve chunk L=16, per head", 1, 16, 48, 48, 64, 128, 256,
@@ -626,10 +676,17 @@ def check_ssd(dev, gen, report) -> float:
               ("ragged L=37 P=20 N=7", 2, 37, 3, 3, 20, 7, 16, True),
               ("ragged L=5 P=33 N=130", 3, 5, 2, 1, 33, 130, 4, False),
               ("two groups L=40 P=96", 2, 40, 4, 2, 96, 64, 16, True)]
+    cases += [(f"verify L={SPEC_DEPTH + 1}", BATCH_SLOTS, SPEC_DEPTH + 1, 48,
+               1, 64, 128, 256, True, (0, 1, 3, SPEC_DEPTH + 1))]
     worst = 0.0
     tol = f"y {ATOL:.4g} + {RTOL:.4g}*|plain|, state {STATE_RTOL:.4g}*max"
-    for label, bsz, l, h, g, p, n, chunk, init in cases:
+    for label, bsz, l, h, g, p, n, chunk, init, *budgets in cases:
         x, dt, a, b, c, h0 = ssd_inputs(gen, dev, bsz, l, h, p, n, init, g)
+        if budgets:
+            real = (torch.arange(l, device=dev)[None, :] <
+                    torch.tensor(budgets[0], device=dev)[:, None])
+            dt = torch.where(real[..., None], dt, 0.0)
+            label = f"{label} budgets {list(budgets[0])}"
         kw = dict(chunk_size=chunk, initial_state=h0)
         y, state = ssd.ssd_scan(x, dt, a, b, c, **kw)
         y2, state2 = ssd.ssd_scan(x, dt, a, b, c, **kw)
@@ -651,6 +708,11 @@ def check_ssd(dev, gen, report) -> float:
                 f"{smax:.4g}) beyond {tol}")
         require(torch.equal(y, y2) and torch.equal(state, state2),
                 f"{what}: two launches differ")
+        if budgets:
+            frozen = [i for i, k in enumerate(budgets[0]) if k == 0]
+            require(all(torch.equal(state[i], h0[i]) for i in frozen),
+                    f"{what}: a row at budget 0 changed its state")
+            what += f"; rows {frozen} at budget 0 keep their state bit for bit"
         report(f"{what}: y max abs err {ea:.4g}, max rel err {er:.4g}; "
                f"state max abs err {es:.4g} of max {smax:.4g} ({tol}); "
                "bitwise equal across two launches")
@@ -1626,10 +1688,12 @@ def timings(dev, gen, report) -> list[dict]:
                + ", ".join(f"{v:.4f}" for v in per_level)
                + "; per level (split, blocks) "
                + ", ".join(f"{g}" for g in geometry))
-    # flash_attention: decode over the serve's positions and a prefill
-    # chunk; the bound counts the keys this data makes visible
+    # flash_attention: decode over the serve's positions, a prefill chunk
+    # and a speculative verify pass (d + 1 = 5 queries per row); the bound
+    # counts the keys this data makes visible
     for label, b, s, offs in (("decode", 4, 1, [68, 140, 260, 300]),
-                              ("prefill chunk", 1, 16, [240])):
+                              ("prefill chunk", 1, 16, [240]),
+                              ("verify", 4, 5, [68, 140, 260, 300])):
         h, t, d = 8, MAX_LEN, 256
         q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
         kk = torch.randn(b, t, 1, d, generator=gen, device=dev).bfloat16()
@@ -1677,20 +1741,20 @@ def timings(dev, gen, report) -> list[dict]:
     return rows
 
 
-def paged_bound(offs, ps, h, kh, d) -> tuple[float, str, int, int]:
-    """The least time for one decode call of the paged kernel (one query
-    per row, at position ``o``; kv_valid is ``o + 1``): each row's visible
-    keys, ``o + 1`` of K and V (bf16), q and out (bf16), the
-    ``ceil((o + 1) / ps)`` table entries that address those keys and the
+def paged_bound(offs, ps, h, kh, d, s=1) -> tuple[float, str, int, int]:
+    """The least time for one call of the paged kernel (``s`` queries per
+    row from position ``o``; kv_valid is ``o + s``): each row's visible
+    keys, ``o + s`` of K and V (bf16), q and out (bf16), the
+    ``ceil((o + s) / ps)`` table entries that address those keys and the
     row's offset and kv_valid (int32), each read or written once at
-    3.35 TB/s, against 4*D FLOPs per visible key and query head at
-    989 TFLOP/s."""
+    3.35 TB/s, against 4*D FLOPs per query head and key that query sees
+    (``o + i + 1`` for query i) at 989 TFLOP/s."""
     b = len(offs)
-    keys = sum(o + 1 for o in offs)
-    entries = sum(-(-(o + 1) // ps) for o in offs)
-    nbytes = keys * kh * d * 2 * 2 + 2 * b * h * d * 2 + entries * 4 + \
+    keys = sum(o + s for o in offs)
+    entries = sum(-(-(o + s) // ps) for o in offs)
+    nbytes = keys * kh * d * 2 * 2 + 2 * b * s * h * d * 2 + entries * 4 + \
         2 * b * 4
-    flops = 4 * h * d * keys
+    flops = 4 * h * d * sum(o + i + 1 for o in offs for i in range(s))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -1703,7 +1767,8 @@ def paged_timings(dev, gen, report) -> list[dict]:
     bound, and a yardstick: SDPA over the K/V already gathered into dense
     rows (the gather is not counted; no single PyTorch call reads through
     a page table).  Then the same at rows of one 64-key tile each, which
-    separates the kernel's cost per tile from its fixed cost."""
+    separates the kernel's cost per tile from its fixed cost, and a
+    speculative verify pass (five queries per row)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention_paged as fap
@@ -1716,22 +1781,24 @@ def paged_timings(dev, gen, report) -> list[dict]:
 
     rows = []
     b, h, kh, d, t = 4, 8, 1, 256, MAX_LEN
-    for label, offs in (("decode", [68, 140, 260, 300]),
-                        ("decode, one tile per row", [63] * 4)):
+    for label, offs, s in (("decode", [68, 140, 260, 300], 1),
+                           ("decode, one tile per row", [63] * 4, 1),
+                           ("verify", [68, 140, 260, 300], 5)):
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
-        kvl = off + 1
+        kvl = off + s
         q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, PAGE_SIZE,
-                                        kvl)
+                                        kvl, s=s)
         kd = fap.gather_pages(kp, table)
         vd = fap.gather_pages(vp, table)
-        mask = (torch.arange(t, device=dev)[None, None, None, :]
-                <= off[:, None, None, None])             # (B,1,1,T)
+        qpos = off[:, None] + torch.arange(s, device=dev)
+        mask = (torch.arange(t, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]            # (B,1,S,T)
         qt = q.transpose(1, 2)
         kt, vt = (a.transpose(1, 2).expand(b, h, t, d) for a in (kd, vd))
         bound_ms, bound_by, nbytes, flops = paged_bound(
-            offs, PAGE_SIZE, h, kh, d)
+            offs, PAGE_SIZE, h, kh, d, s)
         row = {"name": "flash_attention_paged", "shape": label, "b": b,
-               "h": h, "kh": kh, "d": d, "page_size": PAGE_SIZE,
+               "s": s, "h": h, "kh": kh, "d": d, "page_size": PAGE_SIZE,
                "offsets": offs,
                "ms": cold_ms(lambda: fap.flash_attention_paged(
                    q, kp, vp, table, offset=off, kv_valid_len=kvl), 20,
@@ -1746,10 +1813,10 @@ def paged_timings(dev, gen, report) -> list[dict]:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "flops": flops}
         row["split"], row["blocks"] = fap.launch_geometry(
-            b, 1, h, kh, PAGE_SIZE, table.shape[1])
+            b, s, h, kh, PAGE_SIZE, table.shape[1])
         rows.append(row)
-        report(f"time flash_attention_paged {label} B={b} H={h} K={kh} "
-               f"D={d} page {PAGE_SIZE} offsets={offs}: kernel "
+        report(f"time flash_attention_paged {label} B={b} S={s} H={h} "
+               f"K={kh} D={d} page {PAGE_SIZE} offsets={offs}: kernel "
                f"{row['ms']:.4f} ms (split {row['split']}, {row['blocks']} "
                f"blocks), plain {row['plain_ms']:.4f} ms, sdpa "
                f"over the gathered rows (gather not counted) "
@@ -3027,6 +3094,614 @@ def serve_cluster(dev, counters, report, seed, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: speculative decode quanta (n-gram drafts, one batched verify
+# pass, per-family rollback), one CUDA graph per (version, K-bucket, depth)
+SPEC_DEPTH = 4
+# the levels the earlier phases cycle, and the K-buckets 8-step quanta
+# reach (a verify at k = 8 runs bucket 8; plain quanta run 1-8)
+SPEC_LEVELS = (0, 5, 9)
+SPEC_BUCKETS = (1, 2, 4, 8)
+# the repetitive arm, prompts whose greedy continuation the drafter can
+# track, 128 new tokens: on gemma-2b constant-token prompts (one token
+# each, drawn from the seed), whose random-weight continuation settles
+# into repeats; on mamba2-780m, whose random-weight continuation of such a
+# prompt never repeats an n-gram (constant-token prompts drafted in none of
+# 32 quanta on an H100, PERF.md), echo prompts s + g + s, where g is the
+# plain engine's greedy continuation of a random s (the SSM's state
+# forgets within a few tokens, so after the second s it continues with g
+# again, which the drafter finds after the first s); the adversarial
+# arm: the serve's random prompts, 32 new tokens
+SPEC_REP_LENS = (20, 48, 100, 180, 250, 64)
+SPEC_ECHO_LENS = (24, 32, 40, 48, 56, 64)
+SPEC_REP_NEW = 128
+# alternating plain/spec serves per arm and configuration
+SPEC_PAIRS = 3
+# where a speculative stream may part from the plain one: a tie of the
+# plain logits, the top two within SPEC_TIE_ULPS bf16 ulps of the top
+# logit.  gemma-2b: two ulps.  mamba2-780m: eight; a verify scans its
+# d + 1 tokens in one chunk where the plain path steps them one at a
+# time, each layer's output then differs by a bf16 ulp here and there (at
+# most 0.4% of its largest entry with the same input), and 24 residual
+# layers of random weights carry that into the logits: its repetitive arm
+# parted in 6 of 6 streams at gaps of 5, 2, 1, 1, 5 and 7 ulps on an H100
+# (the phase's report).  Partings beyond two ulps are counted apart.
+SPEC_TIE_ULPS = {"attention": 2, "ssm": 8}
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at ``x`` (8 significand bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def drain(engine) -> None:
+    """Run an engine's requests out in 8-step quanta (buckets its warmup
+    built)."""
+    while engine.active_slots:
+        while engine.prefill_pending:
+            engine.prefill_step()
+        engine.step_quantum(QUANTUM)
+
+
+class AlwaysDraft:
+    """A drafter that always proposes d copies of the row's last token:
+    makes a verify happen where a check or a profile needs one."""
+
+    def propose(self, history, depth):
+        import numpy as np
+        return np.full(depth, int(history[-1]), np.int32)
+
+
+def one_step_logits(model, params, tokens, dev):
+    """Logits of the token after ``tokens``: the prefix through 16-token
+    prefill chunks into a batch-1 row, then one decode step with the last
+    token (the plain path's numerics at that position)."""
+    import torch
+    row = model.init_cache(1, MAX_LEN, dev)
+    toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    n = len(tokens) - 1
+    t0 = 0
+    while t0 < n:
+        valid = min(16, n - t0)
+        c = 1 << (valid - 1).bit_length()
+        chunk = torch.zeros((1, c), dtype=torch.int64, device=dev)
+        chunk[0, :valid] = toks[t0:t0 + valid]
+        model.prefill_chunk(params, {"tokens": chunk}, row, t0, valid)
+        t0 += valid
+    logits, _ = model.decode_step(params, {"tokens": toks[n:]}, row,
+                                  torch.tensor([n], device=dev))
+    return logits[0].float()
+
+
+def spec_partings(what, cfg, params, prompts, got, want, dev, report) -> int:
+    """``got`` (spec streams) equals ``want`` (plain streams) stream by
+    stream, or parts where the plain logits at that position, recomputed
+    through a one-step decode, have their top two tied and both tokens
+    there: within SPEC_TIE_ULPS bf16 ulps of the top logit (the
+    family's entry).  Returns the partings."""
+    import numpy as np
+    from repro_torch.models.model import Model
+    model = Model(cfg)
+    ulps = SPEC_TIE_ULPS["attention" if cfg.ssm is None else "ssm"]
+    parted = []
+    for rid, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        require(0 < t < min(len(g), len(w)),
+                f"{what} request {rid}: streams of {len(g)} and {len(w)} "
+                f"tokens part at {t}")
+        hist = np.concatenate([np.asarray(prompts[rid]),
+                               np.asarray(w[:t])])
+        lg = one_step_logits(model, params, hist, dev)
+        top2 = lg.topk(2).values.tolist()
+        tie = ulps * bf16_ulp(top2[0])
+        ok = (top2[0] - top2[1] <= tie and
+              lg[g[t]].item() >= top2[0] - tie and
+              lg[w[t]].item() >= top2[0] - tie)
+        require(ok, f"{what} request {rid} parts at token {t} ({g[t]} "
+                f"speculative, {w[t]} plain) where the plain logits are "
+                f"not tied: top two {top2}, the tokens' "
+                f"{lg[g[t]].item():.6g} / {lg[w[t]].item():.6g}, the tie "
+                f"{tie:.3g}")
+        parted.append({"rid": rid, "at": t, "top2": top2,
+                       "gap_ulps": (top2[0] - top2[1]) / bf16_ulp(top2[0])})
+    wide = sum(p["gap_ulps"] > 2 for p in parted)
+    report(f"spec {what}: {len(got) - len(parted)} of {len(got)} streams "
+           f"equal the plain engine's; {len(parted)} part, each at a tie "
+           f"of the plain logits within {ulps} bf16 ulps, {wide} of them "
+           f"beyond two ulps (gaps in bf16 ulps: "
+           f"{[round(p['gap_ulps'], 2) for p in parted]})")
+    return parted
+
+
+def spec_engine(cfg, params, dev, report, *, speculative=True, graphs=True,
+                **kw):
+    """A 4-slot engine at level 0, warmed (with graphs) at SPEC_LEVELS and
+    SPEC_BUCKETS: captures and their seconds are reported."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
+                        max_len=MAX_LEN, device=dev, cuda_graphs=graphs,
+                        speculative=speculative, spec_depth=SPEC_DEPTH,
+                        **kw)
+    eng.set_interference_level(cm.grid_point(0))
+    what = (f"{cfg.name}{' paged' if eng.paged else ''} "
+            f"{'spec' if speculative else 'plain'}")
+    if graphs:
+        t0 = time.perf_counter()
+        eng.warmup(levels=[cm.grid_point(i) for i in SPEC_LEVELS],
+                   quantum_buckets=SPEC_BUCKETS)
+        torch.cuda.synchronize()
+        calls = eng.version_cache._calls
+        spec = sum(k[1] == "spec" for k in calls)
+        report(f"spec warmup {what}: {time.perf_counter() - t0:.2f} s, "
+               f"{sum(c.graph is not None for c in calls.values())} CUDA "
+               f"graphs ({spec} verify graphs) captured in "
+               f"{eng.version_cache.capture_s:.2f} s")
+    return eng
+
+
+def spec_serve(engine, prompts, n_new, counters) -> dict:
+    """Serve ``prompts`` x ``n_new`` tokens in 8-step quanta while the
+    level cycles over SPEC_LEVELS, from the first of them (the version
+    that prefills the first prompts is the same in every serve); the
+    launch counters are zeroed just before and read just after.  Counts
+    the verify passes, the plain quanta's decode steps and the prefill
+    chunks run."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    require(engine.active_slots == 0, "spec serve: the engine is not idle")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    levels = [cm.grid_point(i) for i in SPEC_LEVELS]
+    engine.set_interference_level(levels[0])
+    stats0 = dict(engine.spec_stats)
+    syncs0, builds0 = engine.host_syncs, engine.version_cache.traces
+    tokens0 = engine.tokens_decoded
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.clear()
+    pending = collections.deque(reqs)
+    verifies = decode_steps = quanta = finishing = 0
+    chunks: list[int] = []
+    turn = 0
+    t0 = time.perf_counter()
+    while pending or engine.active_slots:
+        while pending and engine.admit_request(pending[0]):
+            pending.popleft()
+        while engine.prefill_pending:
+            pq = engine.prefill_step()
+            chunks.append(pq.chunk)
+            finishing += pq.finished
+        engine.set_interference_level(levels[turn % len(levels)])
+        turn += 1
+        handle = engine.begin_quantum(QUANTUM)
+        engine.finish_quantum(handle)
+        if handle is not None:
+            quanta += 1
+            if handle.kind == "spec":
+                verifies += 1
+            else:
+                decode_steps += handle.bucket
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: sum(c.values()) for name, c in counters.items()}
+    for r in reqs:
+        require(r.done and len(r.output) == n_new + 1,
+                f"spec serve: request {r.rid} ended with {len(r.output)} "
+                "tokens")
+    syncs = engine.host_syncs - syncs0
+    require(syncs == quanta + finishing, f"spec serve: {syncs} host syncs "
+            f"for {quanta} quanta + {finishing} finishing prefills")
+    if engine.version_cache.graphs is not None:
+        require(engine.version_cache.traces == builds0,
+                "spec serve: the graphed serve captured after warmup")
+    stats = {k: engine.spec_stats[k] - stats0[k] for k in stats0
+             if k != "draft_hit_rate"}
+    stats["draft_hit_rate"] = (stats["tokens_accepted"]
+                               / max(stats["tokens_drafted"], 1))
+    tokens = engine.tokens_decoded - tokens0
+    return {"streams": [list(r.output) for r in reqs], "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "quanta": quanta, "verifies": verifies,
+            "decode_steps": decode_steps, "chunks": chunks,
+            "host_syncs": syncs, "launches": launches, "spec_stats": stats}
+
+
+def spec_expected(kind: str, cfg, out) -> dict:
+    """Each kernel's launches for the serve ``out``: a verify pass is one
+    forward of d + 1 tokens (B1 and B2, or B3 on a paged cache, once per
+    layer; B4 once per layer in pass 1 and again in the restore pass);
+    a plain quantum runs its bucket's decode steps; a prefill chunk one
+    forward (the ssm family's scan for chunks of two or more tokens)."""
+    n, v, steps = cfg.num_layers, out["verifies"], out["decode_steps"]
+    chunks = len(out["chunks"])
+    if kind == "ssm":
+        return {"ssd_scan": n * (2 * v + sum(c >= 2 for c in out["chunks"]))}
+    passes = v + steps + chunks
+    if kind == "paged":
+        return {"block_matmul": 3 * n * passes,
+                "flash_attention": n * chunks,
+                "flash_attention_paged": n * (v + steps)}
+    return {"block_matmul": 3 * n * passes, "flash_attention": n * passes}
+
+
+def spec_profile(what, engine, plain, prompts, groups, report) -> dict:
+    """One verify quantum (a drafter that always drafts) under
+    torch.profiler against a 1-step plain quantum of the plain engine,
+    four rows each at level 0."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request
+
+    out = {}
+    for label, eng, k in (("verify", engine, QUANTUM), ("plain 1-step",
+                                                        plain, 1)):
+        eng.set_interference_level(cm.grid_point(0))
+        drafter = eng.drafter
+        if label == "verify":
+            eng.drafter = AlwaysDraft()
+        for i, p in enumerate(prompts[:BATCH_SLOTS]):
+            require(eng.admit_request(Request(
+                rid=900 + i, prompt=p, max_new_tokens=6 * QUANTUM),
+                drain=True), "spec profile: no free slot")
+        kinds = []
+
+        def one():
+            handle = eng.begin_quantum(k)
+            kinds.append(handle.kind)
+            eng.finish_quantum(handle)
+        unprofiled_us = timed(one)
+        prof = device_profile(one, groups)
+        require(kinds == ["spec" if label == "verify" else "decode"] * 2,
+                f"spec profile {what}: quanta {kinds}")
+        out[label] = profile_summary(f"spec {what} one {label} quantum, 4 "
+                                     "rows", unprofiled_us, prof, 1, report)
+        eng.drafter = drafter
+        drain(eng)
+    v, p = out["verify"], out["plain 1-step"]
+    out["busy_ratio"] = (v["device_busy_ms"] / p["device_busy_ms"]
+                         if p["device_busy_ms"] else None)
+    out["wall_ratio"] = v["wall_ms"] / p["wall_ms"]
+    report(f"spec {what}: a verify quantum against a 1-step plain quantum: "
+           f"wall {v['wall_ms']:.3f} / {p['wall_ms']:.3f} ms "
+           f"({out['wall_ratio']:.3f}x), device busy "
+           + ("not measured" if out["busy_ratio"] is None else
+              f"{v['device_busy_ms']:.3f} / {p['device_busy_ms']:.3f} ms "
+              f"({out['busy_ratio']:.3f}x)"))
+    return out
+
+
+def spec_index_check(what, engine, cfg, report) -> dict:
+    """One verify with a row at ``MAX_LEN - 1 - d`` (its d + 1 writes end
+    on the row's last position) beside a slot mid-prefill at MAX_LEN - 2
+    (a frozen row whose d + 1 positions run past the row): no device
+    fault, and the mid-prefill slot's cache (its dense row, or its pages)
+    is unchanged bit for bit.  Both requests then run out."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(5)
+    near = Request(rid=950, prompt=rng.integers(
+        0, cfg.vocab_size, MAX_LEN - 1 - SPEC_DEPTH).astype(np.int32),
+        max_new_tokens=4 * SPEC_DEPTH)
+    mid = Request(rid=951, prompt=rng.integers(
+        0, cfg.vocab_size, MAX_LEN - 2).astype(np.int32), max_new_tokens=1)
+    require(engine.admit_request(near, drain=True), "index check: no slot")
+    require(engine.admit_request(mid), "index check: no slot")
+    engine.prefill_step()
+    slot = next(s for s, r in enumerate(engine.slot_req) if r is mid)
+    require(slot in engine._prefill, "index check: the slot is not "
+            "mid-prefill")
+
+    def snapshot():
+        torch.cuda.synchronize()
+        if engine.paged:
+            pages = torch.as_tensor([int(p) for p in engine._page_table[slot]
+                                     if p], device=engine.device)
+            return [leaf[:, pages].clone() for path, leaf in
+                    tree_leaves_with_path(engine.cache)
+                    if path != ("page_table",)]
+        return [leaf.clone() for _, leaf in
+                tree_leaves_with_path(engine._slice_row(slot))]
+    before = snapshot()
+    drafter, engine.drafter = engine.drafter, AlwaysDraft()
+    handle = engine.begin_quantum(QUANTUM)
+    engine.drafter = drafter
+    require(handle is not None and handle.kind == "spec",
+            f"index check {what}: no verify dispatched")
+    engine.finish_quantum(handle)
+    after = snapshot()
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    require(same, f"index check {what}: the mid-prefill slot's cache "
+            "changed")
+    drain(engine)
+    require(near.done and mid.done, "index check: requests did not finish")
+    report(f"spec index check {what}: a verify with a row at position "
+           f"{MAX_LEN - 1 - SPEC_DEPTH} beside a slot mid-prefill at "
+           f"{MAX_LEN - 2} ran without a fault; the mid-prefill slot's "
+           "cache is unchanged bit for bit")
+    return {"ok": True}
+
+
+def spec_restore_check(cfg, params, dev, report) -> dict:
+    """mamba2's restore pass on the card, four rows prefilled with 16
+    random tokens, budgets 0, 1, 3 and d + 1 (drafts are the verify's own
+    continuation, fixed by verifying d + 1 times, so each row emits its
+    budget).
+
+    The model's verify: B4 launches twice per layer (pass 1 and the
+    restore pass), the row that emits nothing keeps its conv and SSD
+    state bit for bit in every layer.  Its state against plain decode
+    steps over the same tokens is reported, not gated: from layer 1 on,
+    the two paths' residual streams differ (bf16 roundings of a chunk
+    against single steps, amplified layer by layer), so the states do.
+
+    Layer by layer on the plain path's residual stream (both paths given
+    the same input): the mixer's pass 1 (no state written) and restore
+    pass (``valid_len = n_emit``) against ``n_emit`` single steps: conv
+    state within two bf16 ulps, SSD state within STATE_RTOL of its
+    largest entry, and bit-equal to the state carried in where ``n_emit``
+    is 0."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map_with_path
+
+    model = Model(cfg)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                           device=dev)
+    cache = model.init_cache(4, MAX_LEN, dev)
+    logits, _ = model.prefill_chunk(params, {"tokens": toks}, cache, 0, 16)
+    first = logits.argmax(-1)
+    pos = torch.full((4,), 16, dtype=torch.int64, device=dev)
+
+    def clone(tree):
+        return tree_map_with_path(lambda _, a: a.clone(), tree)
+    full = torch.full_like(pos, SPEC_DEPTH + 1)
+    drafts = torch.zeros((4, SPEC_DEPTH), dtype=torch.int64, device=dev)
+    for _ in range(SPEC_DEPTH + 1):
+        block, _, accepted, _, _ = model.verify_quantum(
+            params, first, drafts, clone(cache), pos, full)
+        drafts = block.T[:, :SPEC_DEPTH].contiguous()
+    require(accepted.tolist() == [SPEC_DEPTH] * 4, f"restore check: the "
+            f"verify's own continuation accepted {accepted.tolist()}")
+    budget = torch.tensor([0, 1, 3, SPEC_DEPTH + 1], device=dev)
+    spec = clone(cache)
+    before = ssd.launch_count()
+    _, n_emit, _, _, _ = model.verify_quantum(params, first, drafts, spec,
+                                              pos, budget)
+    torch.cuda.synchronize()
+    launched = ssd.launch_count() - before
+    require(launched == 2 * cfg.num_layers, f"restore check: {launched} "
+            f"ssd_scan launches for one verify, expected "
+            f"{2 * cfg.num_layers}")
+    require(torch.equal(n_emit, budget), f"restore check: emitted "
+            f"{n_emit.tolist()}, budgets {budget.tolist()}")
+    seq = torch.cat([first[:, None], drafts], dim=1)
+    plain = clone(cache)
+    for j in range(SPEC_DEPTH + 1):
+        model.decode_step(params, {"tokens": seq[:, j]}, plain, pos + j,
+                          live=n_emit > j)
+    torch.cuda.synchronize()
+    out = {"n_emit": n_emit.tolist(), "model": {}, "layers": {}}
+    for name in ("conv", "ssd"):
+        got = spec["blocks"]["ssm"][name].float()
+        want = plain["blocks"]["ssm"][name].float()
+        start = cache["blocks"]["ssm"][name].float()
+        require(torch.equal(got[:, 0], start[:, 0]) and bool(
+            torch.isfinite(got).all()), f"restore check: the row that "
+            f"emitted nothing changed its {name} state, or a state is not "
+            "finite")
+        dims = tuple(range(1, got.ndim))
+        out["model"][name] = ((got - want).abs().amax(dim=dims)
+                              / want.abs().amax(dim=dims)).tolist()
+    # layer by layer, both paths on the plain path's residual stream
+    x = L.embed(params["embed"], seq, cfg)
+    blocks, caches = params["blocks"]["ssm"], cache["blocks"]["ssm"]
+    worst = {"conv": 0.0, "ssd": 0.0, "output": 0.0}
+    none = torch.zeros(4, dtype=torch.bool, device=dev)
+    for i in range(cfg.num_layers):
+        p = tree_map_with_path(lambda _, a: a[i], blocks)["mixer"]
+        c = tree_map_with_path(lambda _, a: a[i], caches)
+        xa = L.apply_norm(tree_map_with_path(
+            lambda _, a: a[i], blocks)["ln1"], x, cfg.norm_type)
+        restored = clone(c)
+        y1 = S.mamba2_block(p, xa, cfg=cfg, cache=restored, live=none)
+        S.mamba2_block(p, xa, cfg=cfg, cache=restored, valid_len=n_emit,
+                       live=n_emit > 0)
+        stepped, ys = clone(c), []
+        for j in range(SPEC_DEPTH + 1):
+            ys.append(S.mamba2_block(p, xa[:, j:j + 1], cfg=cfg,
+                                     cache=stepped, live=n_emit > j))
+        torch.cuda.synchronize()
+        # pass 1's outputs against single steps on the row that steps all
+        # d + 1 tokens (reported: bf16 roundings, which the layers after
+        # carry on)
+        y_step = torch.cat(ys, dim=1)[3].float()
+        worst["output"] = max(worst["output"], (
+            (y1[3].float() - y_step).abs().max() / y_step.abs().max()).item())
+        for name in ("conv", "ssd"):
+            a, b = restored[name].float(), stepped[name].float()
+            require(torch.equal(a[0], c[name][0].float()),
+                    f"restore check layer {i}: the row that emitted nothing "
+                    f"changed its {name} state")
+            diff = (a - b).abs()
+            ok = (bool((diff <= ATOL + RTOL * b.abs()).all()) if name ==
+                  "conv" else bool(diff.max() <= STATE_RTOL * b.abs().max()))
+            rel = (diff.max() / b.abs().max()).item()
+            worst[name] = max(worst[name], rel)
+            require(ok, f"restore check layer {i}: {name} state after the "
+                    f"restore pass differs from {n_emit.tolist()} single "
+                    f"steps by {rel:.4g} of its largest entry")
+        x = x + torch.cat(ys, dim=1)
+    out["layers"] = worst
+    report(f"spec restore check {cfg.name}: a verify emitting "
+           f"{n_emit.tolist()} tokens ({launched} ssd_scan launches); the "
+           "row that emits nothing keeps its conv and SSD state bit for bit "
+           "in every layer; layer by layer on one residual stream, the "
+           f"restore pass against single steps: max |diff| / max |state| "
+           f"conv {worst['conv']:.4g} (two bf16 ulps), SSD "
+           f"{worst['ssd']:.4g} (tolerance {STATE_RTOL}); pass 1's outputs "
+           f"against single steps, largest over layers (not gated): "
+           f"{worst['output']:.4g}; whole model "
+           f"against single steps (not gated: the residual streams part): "
+           f"conv {max(out['model']['conv']):.4g}, SSD "
+           f"{max(out['model']['ssd']):.4g} of the largest entry")
+    return out
+
+
+def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
+    """Phase 10 for one model: gemma-2b on a dense and on a paged cache
+    (``plain`` is the phase-3 graphed engine; the paged config builds its
+    own plain paged engine), or mamba2-780m (``plain`` from phase 6).
+    Speculative engines (depth SPEC_DEPTH) graphed and eager, both arms,
+    checks and pairs as the module docstring says."""
+    import numpy as np
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_paged as fap
+    from repro_torch.kernels import ssd_scan as ssd
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    if cfg.ssm is None:
+        repetitive = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
+                      for n in SPEC_REP_LENS]
+    else:
+        seeds = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                 for n in SPEC_ECHO_LENS]
+        cont = spec_serve(plain, seeds, SPEC_REP_NEW + SPEC_DEPTH, {})
+        repetitive = [np.concatenate([s, np.asarray(g, np.int32), s])
+                      for s, g in zip(seeds, cont["streams"])]
+    arms = {"repetitive": (repetitive, SPEC_REP_NEW),
+            "adversarial": (prompts, MAX_NEW)}
+    if cfg.ssm is not None:
+        configs = {"mamba2": ("ssm", {}, {"ssd_scan": ssd.LAUNCHES},
+                              {"ssd_scan": "ssd_scan_kernel"})}
+    else:
+        dense = {"block_matmul": bm.LAUNCHES, "flash_attention": fa.LAUNCHES}
+        groups = {"block_matmul": "block_matmul_kernel",
+                  "flash_attention": "flash_attention_kernel"}
+        configs = {
+            "dense": ("dense", {}, dense, groups),
+            "paged": ("paged", {"page_size": PAGE_SIZE},
+                      {**dense, "flash_attention_paged": fap.LAUNCHES},
+                      {**groups,
+                       "flash_attention_paged": "paged_flash_kernel"})}
+    out = {}
+    for label, (kind, kw, counters, groups) in configs.items():
+        what = f"{cfg.name} {label}"
+        engines = {"spec": spec_engine(cfg, params, dev, report, **kw)}
+        engines["plain"] = (plain if kind != "paged" else spec_engine(
+            cfg, params, dev, report, speculative=False, **kw))
+        res = {"arms": {}}
+        first_spec = {}
+        totals = collections.Counter()
+        for arm, (arm_prompts, n_new) in arms.items():
+            runs = {"plain": [], "spec": []}
+            for i in range(SPEC_PAIRS):
+                order = ["plain", "spec"] if i % 2 == 0 else \
+                    ["spec", "plain"]
+                for which in order:
+                    r = spec_serve(engines[which], arm_prompts, n_new,
+                                   counters)
+                    runs[which].append(r)
+                    require(r["streams"] == runs[which][0]["streams"],
+                            f"spec {what} {arm}: the {which} serve's "
+                            "streams changed between runs")
+                    want = spec_expected(kind, cfg, r)
+                    require(r["launches"] == want, f"spec {what} {arm} "
+                            f"{which}: launches {r['launches']}, expected "
+                            f"{want}")
+            spec0 = first_spec[arm] = runs["spec"][0]
+            for key in ("spec_quanta", "tokens_accepted", "spec_rollbacks"):
+                totals[key] += spec0["spec_stats"][key]
+            parted = spec_partings(
+                f"{what} {arm}", cfg, params, arm_prompts, spec0["streams"],
+                runs["plain"][0]["streams"], dev, report)
+            walls = {k: statistics.median(r["wall_s"] for r in v)
+                     for k, v in runs.items()}
+            tps = {k: statistics.median(r["tokens_per_s"] for r in v)
+                   for k, v in runs.items()}
+            res["arms"][arm] = {
+                "partings": len(parted), "parted": parted, "wall_s": walls, "tokens_per_s": tps,
+                "wall_s_runs": {k: [r["wall_s"] for r in v]
+                                for k, v in runs.items()},
+                "speedup": tps["spec"] / tps["plain"],
+                "spec_stats": spec0["spec_stats"],
+                "verifies": spec0["verifies"],
+                "plain_quanta_in_spec_serve": spec0["quanta"]
+                - spec0["verifies"],
+                "decode_steps": {k: v[0]["decode_steps"]
+                                 for k, v in runs.items()},
+                "launches": {k: v[0]["launches"] for k, v in runs.items()},
+                "quanta": {k: v[0]["quanta"] for k, v in runs.items()}}
+            st = spec0["spec_stats"]
+            report(f"spec {what} {arm} ({len(arm_prompts)} requests x "
+                   f"{n_new + 1} tokens, {SPEC_PAIRS} alternating pairs, "
+                   f"median): plain {walls['plain']:.3f} s "
+                   f"{tps['plain']:.1f} tokens/s, spec {walls['spec']:.3f} "
+                   f"s {tps['spec']:.1f} tokens/s, spec/plain "
+                   f"{res['arms'][arm]['speedup']:.3f}x; {st['spec_quanta']} "
+                   f"verifies and {st['spec_fallbacks']} fallbacks, draft "
+                   f"hit rate {st['draft_hit_rate']:.3f} "
+                   f"({st['tokens_accepted']} of {st['tokens_drafted']}), "
+                   f"{st['spec_rollbacks']} rollbacks; launches "
+                   f"{spec0['launches']} (exact)")
+        require(all(totals[k] > 0 for k in ("spec_quanta", "tokens_accepted",
+                                            "spec_rollbacks")),
+                f"spec {what}: over both arms {dict(totals)}: the "
+                "acceptance and the rollback path must both run")
+        # eager equals graphed, on the repetitive arm
+        eager = spec_engine(cfg, params, dev, report, graphs=False, **kw)
+        arm_prompts, n_new = arms["repetitive"]
+        er = spec_serve(eager, arm_prompts, n_new, counters)
+        gr = first_spec["repetitive"]
+        require(er["streams"] == gr["streams"]
+                and er["spec_stats"] == gr["spec_stats"]
+                and er["launches"] == gr["launches"],
+                f"spec {what}: the eager serve differs from the graphed "
+                f"one: {er['spec_stats']} / {gr['spec_stats']}, launches "
+                f"{er['launches']} / {gr['launches']}")
+        res["eager"] = {"wall_s": er["wall_s"], "tokens_per_s":
+                        er["tokens_per_s"], "spec_stats": er["spec_stats"]}
+        report(f"spec {what}: the eager serve (cuda_graphs=False) gives the "
+               f"graphed serve's streams, launches and spec_stats "
+               f"({er['wall_s']:.3f} s eager)")
+        del eager
+        if kind == "paged":
+            pool = engines["spec"].pool
+            require(pool.used_pages == 0 and pool.committed == 0,
+                    f"spec {what}: {pool.used_pages} pages used, "
+                    f"{pool.committed} committed after the serves")
+        if kind != "ssm":
+            res["index_check"] = spec_index_check(what, engines["spec"],
+                                                  cfg, report)
+        res["profile"] = spec_profile(what, engines["spec"],
+                                      engines["plain"], prompts, groups,
+                                      report)
+        out[label] = res
+        del engines
+        gc.collect()
+    if cfg.ssm is not None:
+        out["restore_check"] = spec_restore_check(cfg, params, dev, report)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"spec {cfg.name}: phase 10 part took {out['phase_s']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3066,7 +3741,7 @@ def main() -> int:
 
     card = card_line()
     report(card)
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     logs = cuda_build.build()
     build_s = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
@@ -3136,6 +3811,8 @@ def main() -> int:
         if cfg.ssm is None:
             served[name]["stream_pairs"] = stream_pairs(
                 engine, cfg, params, prompts, dev, report, groups)
+        served[name]["spec"] = serve_spec(cfg, params, engine, prompts, dev,
+                                          report, args.seed)
         host[name] = host_profile(eager, prompts, report)
         prof[name] = {}
         if cfg.ssm is not None:
@@ -3167,6 +3844,14 @@ def main() -> int:
                                   "ssd_scan": ssd.LAUNCHES},
                             report, args.seed, card)
 
+    # phase 10's graphed speculative serves, first of their pairs, both
+    # arms: the kernels' launches there
+    spec_launches = collections.Counter()
+    for name in ("gemma-2b", "mamba2-780m"):
+        for label, res in served[name]["spec"].items():
+            if isinstance(res, dict) and "arms" in res:
+                for arm in res["arms"].values():
+                    spec_launches.update(arm["launches"]["spec"])
     kernels = []
     for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
@@ -3184,15 +3869,22 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(served[model]["launches"][name].values()),
             "cluster_launches": cluster["launches"].get(name, 0),
+            "spec_launches": spec_launches.get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    spec_s = sum(served[n]["spec"]["phase_s"] for n in ("gemma-2b",
+                                                        "mamba2-780m"))
+    total_s = time.perf_counter() - t_script
+    report(f"chip_smoke: phase 10 took {spec_s:.1f} s; the script "
+           f"{total_s:.1f} s from the build on")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster,
-        "kernels": kernels, "lines": lines}, indent=1))
+        "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
+        "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,11 @@ MIN_KEY_OBS = 2        # observations before a key's floor is trusted
 @dataclasses.dataclass(frozen=True)
 class QuantumObservation:
     """One timed dispatch quantum (as recorded by the engine)."""
-    kind: str            # "decode" | "prefill"
+    kind: str            # "decode" | "prefill" | "spec" (speculative
+                         # verify quanta get floors of their own: one
+                         # (B, d+1) forward is another shape class than K
+                         # decode steps, and pooling them would corrupt
+                         # both baselines)
     bucket: int          # K-bucket (decode) / padded chunk size (prefill)
     tiles: tuple         # version-cache tiles key of the active version
     wall_s: float        # measured wall time, sync to sync

@@ -125,10 +125,16 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     fused decode quantum); None writes every row.
 
     With ``page_table`` (B, pages_per_slot) the cache leaves are physical
-    page pools ``(n_pages + 1, page_size, K, D)``: the new token's KV
-    lands in its slot's page at ``cache_index`` and attention reads
-    through the table.  Decode only (S == 1): prefill fills dense rows,
-    which the serving engine scatters into pages."""
+    page pools ``(n_pages + 1, page_size, K, D)``: each row's S new
+    tokens land in its slot's pages from ``cache_index`` (B,) on, and
+    attention reads through the table.  Decode steps (S == 1) and
+    speculative verify passes (S = d + 1) take this path; prefill fills
+    dense rows, which the serving engine scatters into pages.
+
+    A verify pass (S > 1 at (B,) positions with ``live``) keeps every
+    write inside the cache: a paged position past the table goes to the
+    trash page, and a dense position past the row (a frozen row near the
+    end of its slot; the reference's scatter drops it) is not written."""
     b, s, _ = x.shape
     q = torch.einsum("bsm,mhd->bshd", x, params["wq"].to(x.dtype))
     k = torch.einsum("bsm,mkd->bskd", x, params["wk"].to(x.dtype))
@@ -142,21 +148,29 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                    kv_valid_len=s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
     elif page_table is not None:
-        if s != 1 or isinstance(cache_index, int):
-            raise ValueError("a paged cache takes one-token decode steps "
-                             "at (B,) positions (prefill fills dense rows)")
+        if not isinstance(cache_index, torch.Tensor):
+            raise ValueError("a paged cache takes (B,) positions (prefill "
+                             "fills dense rows)")
         ck, cv = cache["k"], cache["v"]
-        ps = ck.shape[1]
-        bidx = torch.arange(b, device=x.device)
-        phys = page_table[bidx, cache_index // ps].long()
-        if live is not None:
+        ps, n_slot = ck.shape[1], page_table.shape[1]
+        rows = cache_index[:, None] + torch.arange(s, device=x.device)
+        slot = rows // ps
+        bidx = torch.arange(b, device=x.device)[:, None]
+        keep = live[:, None] if live is not None else None
+        if s > 1:
+            # a verify pass may run past the table: clamp the lookup and
+            # send the position to the trash page
+            keep = slot < n_slot if keep is None else keep & (slot < n_slot)
+            slot = slot.clamp(max=n_slot - 1)
+        phys = page_table[bidx, slot].long()
+        if keep is not None:
             # a row that is not live writes to the trash page: its own
             # pages stay bit-exact and no shared page is touched
-            phys = torch.where(live, phys, TRASH_PAGE)
-        off = cache_index % ps
-        ck[phys, off] = k[:, 0].to(ck.dtype)
-        cv[phys, off] = v[:, 0].to(cv.dtype)
-        kvl = cache_index + 1
+            phys = torch.where(keep, phys, TRASH_PAGE)
+        off = rows % ps
+        ck[phys, off] = k.to(ck.dtype)
+        cv[phys, off] = v.to(cv.dtype)
+        kvl = cache_index + s
         if use_kernel_hook:
             y = dispatch.get_paged_attention()(
                 q, ck, cv, page_table=page_table, q_positions=positions,
@@ -181,10 +195,24 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
             rows = cache_index[:, None] + torch.arange(s, device=x.device)
             bidx = torch.arange(b, device=x.device)[:, None]
             nk, nv = k.to(ck.dtype), v.to(cv.dtype)
-            if live is not None:
-                keep = live[:, None, None, None]
-                nk = torch.where(keep, nk, ck[bidx, rows])
-                nv = torch.where(keep, nv, cv[bidx, rows])
+            keep = live[:, None] if live is not None else None
+            if s > 1 and live is not None:
+                # a verify pass (a multi-token write with a live mask; a
+                # prefill chunk's caller keeps its rows inside) may run
+                # past the row: clamp every index into it.  A clamped
+                # position writes what its row's last position gets (the
+                # same source token), so repeated indices agree; a row
+                # that starts past the end keeps its entries
+                t_max = ck.shape[1]
+                clamped = rows.clamp(max=t_max - 1)
+                src = (clamped - cache_index[:, None]).clamp(min=0)
+                nk = nk.gather(1, src[..., None, None].expand_as(nk))
+                nv = nv.gather(1, src[..., None, None].expand_as(nv))
+                keep = keep & (cache_index < t_max)[:, None]
+                rows = clamped
+            if keep is not None:
+                nk = torch.where(keep[..., None, None], nk, ck[bidx, rows])
+                nv = torch.where(keep[..., None, None], nv, cv[bidx, rows])
             ck[bidx, rows] = nk
             cv[bidx, rows] = nv
         y = attend(q, ck, cv, q_positions=positions,

@@ -163,6 +163,16 @@ class TorchModel:
         return frozenset(path for path, spec in tree_leaves_with_path(
             self.cache_specs(1, 8)) if "seq" in spec.axes)
 
+    def has_recurrent_leaves(self) -> bool:
+        """True when a cache leaf carries recurrent state (no ``"seq"``
+        axis: the ssm family's conv and SSD leaves): those leaves need the
+        speculative verify's restore pass."""
+        return not self.all_cache_leaves_paged()
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    _has_nonseq_cache_leaves = has_recurrent_leaves
+
     def all_cache_leaves_paged(self) -> bool:
         """True when every cache leaf pages (pure-attention families).
         The paged engine takes only such families: skipping the prefill
@@ -222,12 +232,12 @@ class TorchModel:
 
     def _run_blocks(self, params, x, *, positions, cache, t, live=None,
                     valid_len=None):
-        """``valid_len`` (chunked prefill: a host int or a device scalar)
-        reaches the ssm mixer, for which the tokens past it must be exact
-        no-ops; a padded KV row needs nothing (it stays causally invisible
-        until the decode step at its position overwrites it).  A cache
-        that holds a ``"page_table"`` routes every layer's KV through
-        it."""
+        """``valid_len`` (chunked prefill: a host int or a device scalar;
+        a verify's restore pass: (B,)) reaches the ssm mixer, for which
+        the tokens past it must be exact no-ops; a padded KV row needs
+        nothing (it stays causally invisible until the decode step at its
+        position overwrites it).  A cache that holds a ``"page_table"``
+        routes every layer's KV through it."""
         cfg = self.cfg
         blocks = params["blocks"][cfg.family]
         caches = cache["blocks"][cfg.family] if cache is not None else None
@@ -351,6 +361,69 @@ class TorchModel:
             pos = torch.where(live, pos + 1, pos)
             out.append(toks)
         return torch.stack(out), cache, pos
+
+    def verify_drafts(self, params, tokens, drafts, cache, pos, n_left):
+        """Speculative decode quantum: score a per-row draft block in ONE
+        batched forward and greedily accept the longest matching prefix
+        plus one corrected token.
+
+        ``tokens`` (B,) is each row's last sampled token, ``drafts``
+        (B, d) the drafter's proposed continuation (``d`` fixes the
+        shape: the version cache builds one call per draft depth).  The
+        d+1 tokens [token, draft_0, ..., draft_{d-1}] run as one chunk at
+        per-row start positions ``pos`` (B,).  Per row, ``accepted`` is
+        the length of the longest draft prefix equal to the model's own
+        argmax, and the row emits ``n_emit = min(accepted + 1, n_left)``
+        tokens (0 where ``n_left`` is 0: such a row is frozen).
+
+        Rollback is per cache family, as in the reference:
+
+        * KV leaves (dense rows or page pools) keep the pass-1 writes of
+          live rows: entries past ``pos + n_emit`` stay causally
+          invisible until the next quantum overwrites them.  A row that
+          is not live writes nothing (dense) or the trash page (paged),
+          where the reference writes every row.
+        * Recurrent leaves (the ssm family's conv and SSD state) cannot
+          keep the optimistic update.  Pass 1 does not write them (no row
+          is live for them), and a restore pass from that unchanged state
+          replays the chunk with per-row ``valid_len = n_emit``, writing
+          only rows that emit: padded tokens are exact no-ops (dt = 0),
+          so each row's state is the state after ``n_emit`` steps, and a
+          row at 0 keeps its state bit for bit.  Families without such
+          leaves skip the restore pass (decided here, not on the device).
+
+        The cache is updated in place.  Returns ``(block (d+1, B),
+        n_emit (B,), accepted (B,), cache, pos + n_emit)``; column ``i``
+        of ``block`` holds the row's tokens in its first ``n_emit[i]``
+        entries."""
+        cfg = self.cfg
+        b, d = drafts.shape
+        s = d + 1
+        pos = pos.to(torch.int64)
+        n_left = n_left.to(torch.int64)
+        seq = torch.cat([tokens.to(torch.int64)[:, None],
+                         drafts.to(torch.int64)], dim=1)       # (B, d+1)
+        positions = self._default_positions(b, s, pos, seq.device)
+        x = L.embed(params["embed"], seq, cfg)
+        recurrent = self.has_recurrent_leaves()
+        live = (torch.zeros_like(n_left, dtype=torch.bool) if recurrent
+                else n_left > 0)
+        x1 = self._run_blocks(params, x, positions=positions, cache=cache,
+                              t=pos, live=live)
+        h = L.apply_norm(params["final_norm"], x1, cfg.norm_type)
+        g = L.unembed(params["embed"], h, cfg).argmax(dim=-1)  # (B, d+1)
+        match = (g[:, :d] == drafts.to(torch.int64)).to(torch.int64)
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        n_emit = torch.where(n_left > 0,
+                             torch.minimum(accepted + 1, n_left), 0)
+        if recurrent:
+            self._run_blocks(params, x, positions=positions, cache=cache,
+                             t=pos, live=n_emit > 0, valid_len=n_emit)
+        return g.T, n_emit, accepted, cache, pos + n_emit
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    verify_quantum = verify_drafts
 
 
 # The class has its own name and the reference's name is an alias: the

@@ -43,10 +43,21 @@ Entry points run on the card: ``device=None`` means ``"cuda"``, and an
 engine raises ``RuntimeError`` when CUDA is absent unless the caller asks
 for ``device="cpu"``.
 
+Speculative decode quanta (``speculative=True``): a prompt-lookup
+drafter (:class:`~repro_torch.serving.speculative.NgramDrafter`) proposes
+up to ``spec_depth`` tokens per row from the request's own history; one
+batched verify forward (``TorchModel.verify_quantum``) scores them and
+each row emits its longest matching prefix plus a corrected token.  No
+usable draft, a row too close to ``max_len``, or too few free pages falls
+back to the plain fused quantum (counted in ``spec_fallbacks``).  The
+token block, the rows' emission and acceptance come back in one host
+sync.
+
 CUDA graphs (``cuda_graphs=True``, the default): on the card every call
-of a version-cache entry — a fused quantum per K-bucket, a prefill chunk
-per bucket, the one-step decode, a monolithic prefill per prompt length
-— is a CUDA graph, captured at its first use (``warmup()`` captures them
+of a version-cache entry — a fused quantum per K-bucket, a speculative
+verify per (K-bucket, draft depth), a prefill chunk per bucket, the
+one-step decode, a monolithic prefill per prompt length — is a CUDA
+graph, captured at its first use (``warmup()`` captures them
 all) and replayed after.  A step copies its few host values into the
 engine's static inputs (:class:`StepInputs`), copies a prefilling slot's
 row into the static prefill row, and replays.  ``cuda_graphs=False``
@@ -71,6 +82,7 @@ from repro_torch.kernels import block_matmul, dispatch
 from repro_torch.models.model import Model, cache_batch_axis
 from repro_torch.models.params import tree_map_with_path
 from repro_torch.serving.paging import TRASH_PAGE, PagePool
+from repro_torch.serving.speculative import NgramDrafter
 from repro_torch.serving.version_cache import CudaGraphs, VersionCache
 
 # Fused-quantum sizes: a quantum of k decode steps runs as the smallest
@@ -144,9 +156,10 @@ class StepInputs:
     """The host values of one step on their way to the static inputs that
     every graph of an engine reads: one persistent int64 device buffer
     holding a prefill chunk's start ``t0`` and ``valid`` length, the rows'
-    positions ``pos`` and step budgets ``n_left`` (B,) and the tokens
-    (up to ``max_len``), written by one non-blocking copy per step from a
-    persistent pinned staging buffer.
+    positions ``pos`` and step budgets ``n_left`` (B,), a speculative
+    engine's ``drafts`` (B, depth) and the tokens (up to ``max_len``),
+    written by one non-blocking copy per step from a persistent pinned
+    staging buffer.
 
     The staging buffer has ``DEPTH`` rows, used in turn, and a row is
     rewritten only after its previous copy has run (an event per row): the
@@ -155,10 +168,12 @@ class StepInputs:
 
     DEPTH = 4
 
-    def __init__(self, slots: int, max_len: int, device: torch.device):
+    def __init__(self, slots: int, max_len: int, device: torch.device,
+                 depth: int = 0):
         self.cuda = device.type == "cuda"
         self.slots = slots
-        self._tok = 2 + 2 * slots
+        self._drafts = 2 + 2 * slots
+        self._tok = self._drafts + slots * depth
         width = self._tok + max(max_len, slots)
         self.dev = torch.zeros(width, dtype=torch.int64, device=device)
         self._host = torch.zeros((self.DEPTH, width), dtype=torch.int64,
@@ -169,7 +184,8 @@ class StepInputs:
         self.t0 = self.dev[0]
         self.valid = self.dev[1]
         self.pos = self.dev[2:2 + slots]
-        self.n_left = self.dev[2 + slots:self._tok]
+        self.n_left = self.dev[2 + slots:self._drafts]
+        self.drafts = self.dev[self._drafts:self._tok].view(slots, depth)
         self.tokens = self.dev[self._tok:self._tok + slots]
 
     def prompt(self, n: int) -> torch.Tensor:
@@ -177,7 +193,7 @@ class StepInputs:
         return self.dev[self._tok:self._tok + n].view(1, n)
 
     def push(self, tokens, *, t0: int = 0, valid: int = 0, pos=None,
-             n_left=None) -> None:
+             n_left=None, drafts=None) -> None:
         """Stage one step's values and copy them to the device buffer on
         the current stream.  Fields not given are overwritten with stale
         values: every call pushes each field it reads."""
@@ -191,7 +207,9 @@ class StepInputs:
         if pos is not None:
             row[2:2 + b] = pos
         if n_left is not None:
-            row[2 + b:self._tok] = n_left
+            row[2 + b:self._drafts] = n_left
+        if drafts is not None:
+            row[self._drafts:self._tok] = np.asarray(drafts).reshape(-1)
         row[self._tok:n] = tokens
         self.dev[:n].copy_(self._host[i, :n], non_blocking=True)
         if self.cuda:
@@ -247,6 +265,14 @@ class QuantumHandle:
     traces0: int = -1              # version-cache builds at dispatch
     bucket: int = 0                # K-bucket the quantum ran
     tiles: tuple = ()              # tiles key of the dispatched version
+    # speculative quanta (kind "spec"): ``block`` is the packed (d+3, B)
+    # copy of the token block, the rows' emission and their acceptance;
+    # ``emitted`` and ``accepted`` are views of its last two rows, and
+    # finish_quantum folds the synced emission into n_left
+    kind: str = "decode"           # "decode" | "spec"
+    emitted: torch.Tensor | None = None   # (B,) n_emit (spec only)
+    accepted: torch.Tensor | None = None  # (B,) acceptance (spec only)
+    drafted: int = 0               # draft depth dispatched (spec only)
 
 
 class TorchServingEngine:
@@ -258,14 +284,20 @@ class TorchServingEngine:
                  page_size: int | None = None, n_pages: int | None = None,
                  page_reserve: str = "worst", prefix_sharing: bool = True,
                  ladder=None, device=None, cuda_graphs: bool = True,
-                 version_sets: list | None = None, stream=None):
+                 version_sets: list | None = None, stream=None,
+                 speculative: bool = False, spec_depth: int = 4,
+                 spec_ngram: int = 3, spec_recurrent: bool = True):
         """``cuda_graphs=False`` runs every entry point eagerly on the
         card (the same static buffers, no capture): the eager side of an
         eager/graph comparison.  On the CPU nothing is captured either
         way.  ``version_sets``: the plan's multi-version tables (the
         dominant layer's becomes the tile source).  ``stream``: the CUDA
         stream the engine's work runs on (None: a new stream of its own;
-        engines given one stream serialize)."""
+        engines given one stream serialize).  ``speculative``: fused
+        quanta verify up to ``spec_depth`` drafted tokens per row (drafts
+        from n-grams of up to ``spec_ngram`` tokens); a model with
+        recurrent cache state speculates only with ``spec_recurrent``
+        (its verify runs a restore pass)."""
         self.device = resolve_device(device)
         self.stream = (None if self.device.type != "cuda" else stream
                        if stream is not None else torch.cuda.Stream(
@@ -339,11 +371,31 @@ class TorchServingEngine:
         # so a reused slot cannot leak the previous tenant's KV.  A paged
         # engine prefills into a dense row too and scatters it into pages
         self._empty_row = self.model.init_cache(1, max_len, self.device)
+        # speculative decode quanta (the reference's semantics): drafts
+        # from the request's own history, one batched verify forward, the
+        # longest matching prefix plus a corrected token emitted
+        self.speculative = bool(speculative)
+        self.spec_depth = int(spec_depth)
+        if self.speculative and self.spec_depth < 1:
+            raise ValueError("spec_depth must be >= 1")
+        self._spec_enabled = self.speculative and (
+            bool(spec_recurrent) or not self.model.has_recurrent_leaves())
+        self.drafter = (NgramDrafter(depth=self.spec_depth,
+                                     max_ngram=int(spec_ngram))
+                        if self.speculative else None)
+        self.spec_quanta = 0       # speculative quanta dispatched
+        self.spec_fallbacks = 0    # spec-eligible dispatches that fell back
+        self.tokens_drafted = 0    # draft tokens submitted to verify
+        self.tokens_accepted = 0   # tokens emitted past the corrected one
+        self.spec_rollbacks = 0    # row-quanta where a draft was rejected
+        self._spec_accept_ewma = 1.0   # emitted tokens per row and verify
         # static inputs of every graph: the step's host values, and the
         # prefill row every chunk and monolithic prefill runs in (a slot's
         # row is copied in before and out after; chunks of different
         # slots interleave)
-        self._inputs = StepInputs(batch_slots, max_len, self.device)
+        self._inputs = StepInputs(
+            batch_slots, max_len, self.device,
+            self.spec_depth if self._spec_enabled else 0)
         self._row = self.model.init_cache(1, max_len, self.device)
         # tiles: the dominant layer's multi-version table when version sets
         # are given (on the card each of its versions must be a tile the
@@ -395,11 +447,6 @@ class TorchServingEngine:
         self.host_syncs = 0
         self.tokens_decoded = 0
         self.quantum_calls = 0
-        # speculative-decode counters the runtime's metrics read; this
-        # engine runs no speculative quanta, so they stay 0
-        self.tokens_drafted = 0
-        self.tokens_accepted = 0
-        self.spec_rollbacks = 0
         self.version_cache = VersionCache(
             self.model, graphs=CudaGraphs(self.device)
             if self.device.type == "cuda" and cuda_graphs else None)
@@ -441,18 +488,22 @@ class TorchServingEngine:
     draft_hit_rate = draft_acceptance
 
     def accept_per_step(self) -> float:
-        """Expected tokens emitted per dispatched decode step: 1.0 on an
-        engine without speculative quanta (the SLO scheduler's slack
-        arithmetic multiplies its step budget by this)."""
-        return 1.0
+        """Expected tokens emitted per dispatched decode step (>= 1.0;
+        exactly 1.0 without speculative quanta): an EWMA of the rows'
+        emission per verify.  The SLO scheduler's slack arithmetic
+        multiplies its step budget by this."""
+        if not self._spec_enabled:
+            return 1.0
+        return max(1.0, float(self._spec_accept_ewma))
 
     expected_accept_per_step = accept_per_step
 
     @property
     def speculative_stats(self) -> dict:
         """Speculative-decode counters for the metrics (the reference's
-        keys; this engine runs no speculative quanta, so all zero)."""
-        return {"spec_quanta": 0, "spec_fallbacks": 0,
+        keys)."""
+        return {"spec_quanta": self.spec_quanta,
+                "spec_fallbacks": self.spec_fallbacks,
                 "tokens_drafted": self.tokens_drafted,
                 "tokens_accepted": self.tokens_accepted,
                 "draft_hit_rate": self.draft_acceptance,
@@ -498,11 +549,12 @@ class TorchServingEngine:
         distinct version the interference levels select (default: the
         full grid of levels) so later level switches and steps build
         nothing: one decode per version, every fused K-bucket, every
-        prefill-chunk bucket, and a monolithic prefill per length in
-        ``prompt_lens``.  The warm quanta freeze every row (``n_left``
-        0), the warm decodes write position 0 of every slot, and rows of
-        resident requests are restored after.  Returns the version-cache
-        stats."""
+        reachable (K-bucket, draft depth) verify of a speculative engine,
+        every prefill-chunk bucket, and a monolithic prefill per length
+        in ``prompt_lens``.  The warm quanta and verifies freeze every row
+        (``n_left`` 0), the warm decodes write position 0 of every slot,
+        and rows of resident requests are restored after.  Returns the
+        version-cache stats."""
         if levels is None:
             levels = [cm.grid_point(i) for i in range(cm.NUM_LEVELS)]
         buckets = (self.quantum_buckets if quantum_buckets is None
@@ -527,7 +579,8 @@ class TorchServingEngine:
             if entry.key in warmed:
                 continue
             warmed.add(entry.key)
-            inp.push(zeros, pos=zeros, n_left=zeros)
+            inp.push(zeros, pos=zeros, n_left=zeros,
+                     drafts=np.zeros(inp.drafts.shape, np.int64))
             # the calls update the cache in place and return it: adopting
             # it rebinds self.cache to the same tensors
             _, self.cache = entry.decode(self.params, {"tokens": inp.tokens},
@@ -536,6 +589,20 @@ class TorchServingEngine:
                 qfn = self.version_cache.quantum(entry, k, self.slots)
                 _, self.cache, _ = qfn(self.params, inp.tokens, self.cache,
                                        inp.pos, inp.n_left)
+            if self._spec_enabled:
+                # every reachable (bucket, depth) pair: a verify runs the
+                # smallest bucket covering min(k, d+1), so buckets above
+                # that one are never asked for
+                cap = min(self.spec_depth + 1, self.quantum_buckets[-1])
+                top = next(b for b in self.quantum_buckets if b >= cap)
+                for bucket in buckets:
+                    if bucket > top:
+                        continue
+                    sfn = self.version_cache.spec_quantum(
+                        entry, bucket, self.spec_depth, self.slots)
+                    out = sfn(self.params, inp.tokens, inp.drafts,
+                              self.cache, inp.pos, inp.n_left)
+                    self.cache = out[3]
             if self.chunked_prefill:
                 for cb in self.prefill_buckets:
                     inp.push(np.zeros(cb, np.int64), valid=cb)
@@ -1156,6 +1223,13 @@ class TorchServingEngine:
             # a live row always decodes at least one step
             n_left[i] = max(1, min(need, room))
             toks[i] = req.output[-1]
+        if fused and self._spec_enabled:
+            handle = self._dispatch_verify(int(k), active, n_left.copy(),
+                                           toks)
+            if handle is not None:
+                return handle
+            # no usable draft, no room for the d+1 write span: the plain
+            # fused quantum below is the fallback
         if self.paged:
             cap = 1 if not fused else min(int(k), self.quantum_buckets[-1])
             n_left = self._paged_preflight(active, np.minimum(n_left, cap))
@@ -1191,6 +1265,78 @@ class TorchServingEngine:
                              active=active, t0=t0, traces0=traces0,
                              bucket=bucket, tiles=self._entry.key)
 
+    def _dispatch_verify(self, k: int, active: list[int], n_left: np.ndarray,
+                         toks: np.ndarray) -> QuantumHandle | None:
+        """Dispatch one speculative verify quantum, or return None to fall
+        back to the plain fused quantum: no row drafted, a row too close
+        to ``max_len`` for the d+1 write span, or (paged) too few free
+        pages for the worst-case d+1 writes per row, or a preflight that
+        leaves no row a token.  Every fallback is counted."""
+        d = self.spec_depth
+        # the verify writes positions [pos, pos + d] of every active row,
+        # whatever it accepts, so every row needs d steps of room
+        if any(self.max_len - 1 - int(self.slot_pos[i]) < d
+               for i in active):
+            self.spec_fallbacks += 1
+            return None
+        if self.paged and self.decode_k_headroom(d + 1) < d + 1:
+            self.spec_fallbacks += 1
+            return None
+        drafts = np.zeros((self.slots, d), np.int64)
+        n_drafted = 0
+        for i in active:
+            req = self.slot_req[i]
+            dr = self.drafter.propose(
+                np.concatenate([np.asarray(req.prompt, np.int32),
+                                np.asarray(req.output, np.int32)]), d)
+            if dr is not None:
+                drafts[i] = dr
+                n_drafted += 1
+        if n_drafted == 0:
+            # nothing to verify: one token per row for d+1 positions of
+            # work, so the plain quantum is strictly better
+            self.spec_fallbacks += 1
+            return None
+        cap = min(max(int(k), 1), d + 1, self.quantum_buckets[-1])
+        n_left = np.minimum(n_left, cap)
+        if self.paged:
+            span = np.zeros(self.slots, np.int64)
+            span[active] = d + 1
+            span = self._paged_preflight(active, span)
+            # writes past a row's mapped span land on the trash page:
+            # tokens whose KV lives there are never emitted
+            n_left = np.minimum(n_left, span)
+            if not any(n_left[i] > 0 for i in active):
+                self.spec_fallbacks += 1
+                return None
+        bucket = next(b for b in self.quantum_buckets if b >= cap)
+        sfn = self.version_cache.spec_quantum(self._entry, bucket, d,
+                                              self.slots)
+        traces0 = self.version_cache.traces
+        t0 = time.perf_counter()
+        inp = self._inputs
+        inp.push(toks, pos=self.slot_pos, n_left=n_left, drafts=drafts)
+        block, n_emit, accepted, self.cache, _ = sfn(
+            self.params, inp.tokens, inp.drafts, self.cache, inp.pos,
+            inp.n_left)
+        # the graph's outputs are rewritten by later replays: one packed
+        # copy, on the stream right after the replay, and one sync for it
+        packed = torch.cat([block, n_emit[None], accepted[None]])
+        self.quantum_calls += 1
+        self.spec_quanta += 1
+        self.tokens_drafted += d * len(active)
+        # steps=1: a verify is ONE forward, so virtual clocks charge it
+        # like a single decode step while it emits up to min(k, d+1)
+        # tokens a row
+        return QuantumHandle(block=packed, n_left=n_left, steps=1,
+                             active=active, t0=t0, traces0=traces0,
+                             bucket=bucket, tiles=self._entry.key,
+                             kind="spec", emitted=packed[-2],
+                             accepted=packed[-1], drafted=d)
+
+    # the reference's name, bound without a second ``def`` (see ``step``)
+    _try_spec_quantum = _dispatch_verify
+
     @on_engine_stream
     def finish_quantum(self, handle: QuantumHandle | None) -> list[Request]:
         """Block on a dispatched quantum — the single device->host sync —
@@ -1198,13 +1344,31 @@ class TorchServingEngine:
         positions, free finished slots.  Returns finished requests."""
         if handle is None:
             return []
-        # the one device->host sync of a quantum
+        # the one device->host sync of a quantum (a verify's block, its
+        # rows' emission and acceptance come packed in one tensor)
         block = handle.block.cpu().numpy()
         self.host_syncs += 1
+        if handle.kind == "spec":
+            block, emitted, accepted = block[:-2], block[-2], block[-1]
+            # the rows' real emission, for every consumer below and in
+            # the runtimes
+            handle.n_left = emitted
+            for i in handle.active:
+                self.tokens_accepted += max(int(emitted[i]) - 1, 0)
+                if int(accepted[i]) < handle.drafted:
+                    self.spec_rollbacks += 1
+            if handle.active:
+                mean = float(emitted[handle.active].sum()) \
+                    / len(handle.active)
+                self._spec_accept_ewma = (0.8 * self._spec_accept_ewma
+                                          + 0.2 * mean)
+        # speculative quanta observe under their own kind: their wall per
+        # token varies with acceptance, and pooling them with "decode"
+        # would read as interference
         if handle.t0 > 0.0 and \
                 handle.traces0 == self.version_cache.traces:
             self.counter_bank.observe(
-                "decode", handle.bucket, handle.tiles,
+                handle.kind, handle.bucket, handle.tiles,
                 time.perf_counter() - handle.t0,
                 tokens=int(handle.n_left.sum()),
                 co_runners=self.co_runner_load)

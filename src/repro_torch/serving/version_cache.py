@@ -3,25 +3,25 @@ graph on the card.
 
 The PyTorch counterpart of ``repro.serving.version_cache``: one
 :class:`VersionEntry` per tile configuration holds prefill, chunked
-prefill, decode and fused-quantum callables that run their model calls
-under the entry's own :func:`repro_torch.kernels.dispatch.tile_context`,
-so several engines holding different versions in one process do not
-interfere through the process-global table.  A level switch is a
-dictionary swap.
+prefill, decode, fused-quantum and speculative-verify callables that run
+their model calls under the entry's own
+:func:`repro_torch.kernels.dispatch.tile_context`, so several engines
+holding different versions in one process do not interfere through the
+process-global table.  A level switch is a dictionary swap.
 
 Where the reference holds one XLA executable per (entry, callable, shape
-key) — a K-bucket, a prefill-chunk bucket, a prompt length — this cache
-holds one :class:`GraphedCall`, which on the card is one CUDA graph (with
-:class:`CudaGraphs`; ``graphs=None`` runs the same calls eagerly, as
-``jax.disable_jit`` does for the reference).  A call is bound to the
-tensors of its first use — the engine's static input buffers, its
-persistent cache and its weights — and raises :class:`StaticArgError`
-when later given others, on every device, so the CPU runs the same
-static-buffer path the card replays.  Its first use runs eagerly (that
-is the call's result) and is then captured: the tiles are baked into the
-graph as the reference bakes them in at trace, and every later call only
-replays it.  A capture or replay error raises; nothing falls back to the
-eager callable.
+key) — a K-bucket, a (K-bucket, draft depth) pair, a prefill-chunk
+bucket, a prompt length — this cache holds one :class:`GraphedCall`,
+which on the card is one CUDA graph (with :class:`CudaGraphs`;
+``graphs=None`` runs the same calls eagerly, as ``jax.disable_jit`` does
+for the reference).  A call is bound to the tensors of its first use —
+the engine's static input buffers, its persistent cache and its weights
+— and raises :class:`StaticArgError` when later given others, on every
+device, so the CPU runs the same static-buffer path the card replays.
+Its first use runs eagerly (that is the call's result) and is then
+captured: the tiles are baked into the graph as the reference bakes them
+in at trace, and every later call only replays it.  A capture or replay
+error raises; nothing falls back to the eager callable.
 
 ``traces`` counts builds — captures on the card, first uses without
 graphs — under the reference's keys, so the "zero new builds after
@@ -208,6 +208,11 @@ class VersionEntry:
     # K-bucket -> fused quantum decode
     #   (params, tokens (B,), cache, pos (B,), n_left (B,)) -> (block, cache, pos)
     quanta: dict[int, Callable] = dataclasses.field(default_factory=dict)
+    # (K-bucket, draft depth) -> speculative verify
+    #   (params, tokens (B,), drafts (B,d), cache, pos (B,), n_left (B,))
+    #   -> (block (d+1,B), n_emit, accepted, cache, pos)
+    spec: dict[tuple[int, int], Callable] = dataclasses.field(
+        default_factory=dict)
 
 
 class TorchVersionCache:
@@ -336,6 +341,36 @@ class TorchVersionCache:
         fn = entry.quanta[k] = self._call(
             (entry.key, "quantum", k, int(batch)), run_quantum)
         return fn
+
+    def verify_call(self, entry: VersionEntry, k: int, d: int,
+                    batch: int) -> Callable:
+        """The speculative verify of ``entry`` for ``batch`` rows, keyed
+        per (K-bucket, draft depth) like :meth:`quantum`: ``k`` caps each
+        row's emission on the device (a verify emits at most ``min(k,
+        d+1)`` tokens a row), ``d`` fixes the (B, d+1) verify shape.
+        Raises :class:`StaticArgError` for a ``k`` that is not a
+        power-of-two int or a ``d`` that is not an int."""
+        k, d = _pow2_bucket("k", k), _static_int("d", d)
+        fn = entry.spec.get((k, d))
+        if fn is not None:
+            self.hits += 1
+            return fn
+        self.misses += 1
+        snap = entry.tiles
+        model = self.model
+
+        def run_verify(params, tokens, drafts, cache, pos, n_left):
+            with dispatch.tile_context(snap):
+                return model.verify_quantum(params, tokens, drafts, cache,
+                                            pos, n_left.clamp(max=k))
+        fn = entry.spec[(k, d)] = self._call(
+            (entry.key, "spec", k, d, int(batch)), run_verify)
+        return fn
+
+    # the reference's name, bound without a second ``def``: the static
+    # analyzer resolves the reference engine's
+    # ``self.version_cache.spec_quantum`` by the method name being unique
+    spec_quantum = verify_call
 
 
 # The class has its own name and the reference's name is an alias: the

@@ -751,3 +751,78 @@ def test_cluster_on_streams_of_its_own_serves_the_one_stream_streams(
             assert len(ran) == 2, (t.name, ran)
         runs.append((rt.outputs, rt.sched_trace, m.partition_trace))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode quanta
+
+
+def _one_step_logits(model, params, tokens, dev):
+    """Logits after ``tokens`` on the plain path: a prefill of all but the
+    last token, then one decode step with it."""
+    toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    n = len(tokens) - 1
+    row = model.init_cache(1, 64, dev)
+    model.prefill(params, {"tokens": toks[None, :n]}, row)
+    logits, _ = model.decode_step(params, {"tokens": toks[n:]}, row,
+                                  torch.tensor([n], device=dev))
+    return logits[0].float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m"])
+def test_spec_engine_on_the_card_serves_the_plain_streams(cuda_device, arch):
+    """Reduced models, graphed: the speculative engine's streams are the
+    plain engine's (a parting only at a tie of the plain logits within
+    two bf16 ulps); every verify launches B2 once per layer (gemma-2b) or
+    B4 twice per layer (mamba2: pass 1 and the restore pass) and costs
+    one host sync; nothing is captured after warmup."""
+    cfg = get_reduced_config(arch)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
+               for n in (6, 11)]
+    prompts += [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in (9, 4)]
+    counter = fa.LAUNCHES if cfg.ssm is None else ssd.LAUNCHES
+    per_verify = cfg.num_layers * (1 if cfg.ssm is None else 2)
+    streams, verifies = {}, 0
+    for spec in (False, True):
+        eng = ServingEngine(cfg, params, batch_slots=2, max_len=64,
+                            device=cuda_device, speculative=spec)
+        eng.warmup(levels=[cm.grid_point(0), cm.grid_point(9)])
+        builds = eng.version_cache.traces
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=24)
+                for i, p in enumerate(prompts)]
+        pending = list(reqs)
+        for i in range(400):
+            if all(r.done for r in reqs):
+                break
+            while pending and eng.admit_request(pending[0], drain=True):
+                pending.pop(0)
+            eng.set_interference_level(cm.grid_point(0 if i % 2 else 9))
+            torch.cuda.synchronize()
+            launches0, syncs0 = sum(counter.values()), eng.host_syncs
+            handle = eng.begin_quantum(4)
+            eng.finish_quantum(handle)
+            torch.cuda.synchronize()
+            if handle is not None and handle.kind == "spec":
+                verifies += 1
+                assert sum(counter.values()) - launches0 == per_verify
+                assert eng.host_syncs == syncs0 + 1
+        assert all(r.done for r in reqs)
+        assert eng.version_cache.traces == builds
+        streams[spec] = [list(r.output) for r in reqs]
+    assert verifies > 0
+    for rid, (got, want) in enumerate(zip(streams[True], streams[False])):
+        if got == want:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        lg = _one_step_logits(model, params, np.concatenate(
+            [prompts[rid], np.asarray(want[:t], np.int32)]), cuda_device)
+        top = lg.topk(2).values.tolist()
+        ulp2 = 2.0 ** (np.floor(np.log2(abs(top[0]))) - 6)
+        assert top[0] - top[1] <= ulp2, (rid, t, top)
+        assert min(lg[got[t]].item(), lg[want[t]].item()) >= top[0] - ulp2

@@ -16,6 +16,9 @@ parts at a position whose reference logits have their top two within
 bf16 ulps; ``tests/test_torch_model.py``), which the helper checks where
 it happens.
 
+``tests/test_torch_runtime_spec.py`` runs the same check
+(``check_serve_matches_reference``) on a speculative engine.
+
 Then the reference's runtime properties on the port alone: SLO and FIFO
 serve identical tokens through different traces, an interactive prefill
 preempts a batch decode, levels respond to load, a bad scheduler name
@@ -122,15 +125,16 @@ def _runtime(side, engine, plans, policy=None, **kw):
 
 def _workload(side, **kw):
     rt = r_rt if side == "jax" else t_rt
+    kw = {"max_new_tokens": 6, **kw}
     return rt.Workload.bursty(TENANTS, 900, 24, burstiness=4.0,
-                              prompt_len=10, prompt_len_spread=8,
-                              max_new_tokens=6, seed=11, tiers=TIERS, **kw)
+                              prompt_len=10, prompt_len_spread=8, seed=11,
+                              tiers=TIERS, **kw)
 
 
-def _serve(models, plans, case, schedule):
-    """Serve the case's workload on both sides; returns side -> (runtime,
-    metrics, workload)."""
-    name, engine_kw = CASES[case]
+def _serve(models, plans, case, schedule, cases=CASES, workload_kw=None):
+    """Serve the case's workload (``workload_kw`` overrides its options)
+    on both sides; returns side -> (runtime, metrics, workload)."""
+    name, engine_kw = cases[case]
     scheduler, admission = SCHEDULES[schedule]
     out = {}
     for side in ("jax", "torch"):
@@ -139,7 +143,7 @@ def _serve(models, plans, case, schedule):
                       scheduler=scheduler,
                       admission=slo.AdmissionController() if admission
                       else None)
-        wl = _workload(side)
+        wl = _workload(side, **(workload_kw or {}))
         out[side] = (rt, rt.serve(wl), wl)
     return out
 
@@ -174,11 +178,12 @@ def parts_only_at_reference_near_ties(models, name, wl, got, want):
     return parted
 
 
-@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_virtual_time_serve_matches_reference(models, plans, case,
-                                              schedule):
-    runs = _serve(models, plans, case, schedule)
+def check_serve_matches_reference(models, plans, case, schedule,
+                                  cases=CASES, workload_kw=None):
+    """The case's serve on both sides gives the same traces, records,
+    metrics and engine counters, and streams that part only at reference
+    near-ties.  Returns the runs (see ``_serve``)."""
+    runs = _serve(models, plans, case, schedule, cases, workload_kw)
     (jr, jm, jwl), (tr, tm, twl) = runs["jax"], runs["torch"]
     assert jwl.arrivals == twl.arrivals
     assert tr.sched_trace == jr.sched_trace
@@ -196,12 +201,20 @@ def test_virtual_time_serve_matches_reference(models, plans, case,
         assert getattr(te, attr) == getattr(je, attr), attr
     assert te.page_stats == je.page_stats
     assert tm.n_queries + tm.shed_queries == twl.n_queries
-    parts_only_at_reference_near_ties(models, CASES[case][0], jwl,
+    parts_only_at_reference_near_ties(models, cases[case][0], jwl,
                                       tr.outputs, jr.outputs)
     if case == "gemma-2b-paged":
         assert te.pool.used_pages == 0 and te.pool.committed == 0
     if schedule == "slo-admission":
         assert tm.shed_queries + tm.deferred_queries > 0
+    return runs
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_virtual_time_serve_matches_reference(models, plans, case,
+                                              schedule):
+    check_serve_matches_reference(models, plans, case, schedule)
 
 
 def test_the_cases_exercise_what_they_claim(models, plans):
