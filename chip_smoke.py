@@ -15,11 +15,15 @@ Phases, each fatal on failure:
      serving paths' shapes, each call launched twice and equal bit for
      bit (``block_matmul`` and ``flash_attention`` under every distinct
      tile of the H100 level table: B1 at M = 1, 4, 16 over gemma-2b's and
-     starcoder2-3b's MLP GEMMs and a K that a cluster of 8 cannot split
-     evenly, B2 with MQA and GQA at gemma-2b's heads and at starcoder2-3b's
-     (24 over 2 KV heads, D 128), decode rows at positions 0 and 511,
-     16-token chunks and a speculative verify pass (B 4, S 5), and every
-     block B2 is built for at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
+     starcoder2-3b's MLP GEMMs, at M = 4, 16 and 20 over
+     recurrentgemma-2b's (2560 -> 7680 -> 2560: uneven split-K ranges),
+     and a K that a cluster of 8 cannot split evenly, B2 with MQA and GQA
+     at gemma-2b's heads and at starcoder2-3b's (24 over 2 KV heads, D
+     128), decode rows at positions 0 and 511, 16-token chunks and a
+     speculative verify pass (B 4, S 5), at recurrentgemma-2b's (10 over
+     1, D 256) under its 2048-token window over a 2100-token prefill (the
+     window binds) and 16-token chunks, and every block B2 is built for
+     at split 8; ``ssd_scan`` at the serve's chunks, a three-chunk
      monolithic prompt, B = 4 and ragged shapes, with B and C per group
      (G = 1, as the model passes them) and per head; ``flash_attention_paged``
      at page sizes 8, 16 and 32 over shuffled page tables at split 8, rows
@@ -87,7 +91,9 @@ Phases, each fatal on failure:
      launches, an empty pool) and in wall-clock mode, and the SLO
      scheduler's pick clamped to one step by a full pool;
   8. times at the serve's shapes (B2 and B3 also at a verify pass's,
-     five queries a row): kernel, plain version, one PyTorch call
+     five queries a row; B1 and B2 also at recurrentgemma-2b's: its MLP
+     at M = 4, 16 and 20, the 2100-token windowed prefill and 16-token
+     chunks): kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
      count of each launch (for B1 and B2 at each level), and B1 and its
@@ -143,7 +149,31 @@ Phases, each fatal on failure:
      without a fault and the slot's cache unchanged; mamba2's restore
      pass leaving the state of ``n_emit`` plain steps (bit-equal to the
      state carried in where ``n_emit`` is 0).  Reported: one verify
-     quantum under torch.profiler against a 1-step plain quantum.
+     quantum under torch.profiler against a 1-step plain quantum;
+ 11. the hybrid family: recurrentgemma-2b at full width and all 26
+     layers ((rec, rec, attn) x 8 + (rec, rec); the RG-LRU in plain ops,
+     a ring of the last 2048 keys per attention layer), seeded weights
+     made on the card, ``batch_slots=4``, ``max_len=512``, warmed at the
+     levels 0/5/9 and K-buckets 1-8.  Fatal: the six prompts x MAX_NEW
+     tokens served eagerly and with graphs give equal streams, nothing
+     captured after warmup, one host sync a quantum, B1 exactly 78
+     launches per decode step and chunk and B2, B3, B4 none; a
+     ``chunked_prefill=False`` serve (B2 8 times per monolithic prefill)
+     equals the chunked streams or parts at a two-ulp tie; a
+     RING_PROMPT-token prompt prefilled monolithically (B2's window
+     binding) and in 16-token chunks (the ring wraps), then RING_STEPS
+     decode steps: logits within RING_RTOL of the largest, tokens equal
+     where clear, ring positions equal; the whole model through the
+     kernels against the plain versions (monolithic prefill, decode
+     step, chunk); the restore pass (B1 156, B2 0 per verify; layer by
+     layer h within STATE_RTOL, conv and ring within two bf16 ulps, ring
+     positions equal, a row emitting nothing unchanged); a speculative
+     engine on constant-token prompts (echo prompts too if those draft
+     nothing) with exact launches, streams equal or parting at two-ulp
+     ties, verifies, acceptances and rollbacks above 0.  Reported: a
+     profiled 8-step quantum and 16-token chunk, warmup captures and
+     seconds, the phase's seconds.  A failed check is reported and the
+     phase runs on; it fails at its end.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -334,6 +364,12 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                            (12288, 3072))]
     shapes += [(BATCH_SLOTS * (SPEC_DEPTH + 1), k, n)
                for k, n in ((2048, 16384), (16384, 2048))]
+    # recurrentgemma-2b's MLP (2560 -> 7680 -> 2560: 40 and 120 tiles of
+    # 64, uneven split-K ranges) at a decode step's M = 4, a chunk's 16
+    # and a verify's 20
+    shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
+                                   BATCH_SLOTS * (SPEC_DEPTH + 1))
+               for k, n in ((2560, 7680), (7680, 2560))]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -431,6 +467,52 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                    f"equal across two launches, max abs err {case_abs:.4g}, "
                    f"max rel err {case_rel:.4g} ({tol}); (split, blocks) "
                    f"{sorted(used)}")
+    # recurrentgemma-2b's heads (10 over one KV head at D 256: 10
+    # flattened rows a query) under its 2048-token window: a monolithic
+    # prefill longer than the window (the window binds), and 16-token
+    # chunks at the serve's offsets.  (label, B, S, T, offsets, window)
+    for name, b, s, t, offs, window in (
+            ("recurrentgemma-2b prefill past the window", 1, RING_PROMPT,
+             RING_PROMPT, [0], HYBRID_WINDOW),
+            ("recurrentgemma-2b 16-token chunks", BATCH_SLOTS, 16, MAX_LEN,
+             [68, 140, 260, 300], HYBRID_WINDOW)):
+        q = torch.randn(b, s, 10, 256, generator=gen, device=dev).bfloat16()
+        kk = torch.randn(b, t, 1, 256, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, t, 1, 256, generator=gen, device=dev).bfloat16()
+        off = torch.tensor(offs, device=dev)
+        kvl = off + s
+        want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl,
+                             window=window)
+        case_abs = case_rel = 0.0
+        used = set()
+        for tiles in att_tiles:
+            kw = dict(offset=off, kv_valid_len=kvl, window=window, **tiles)
+            got = fa.flash_attention(q, kk, v, **kw)
+            again = fa.flash_attention(q, kk, v, **kw)
+            if b2_ref is not None:
+                n_ref += 1
+                require(torch.equal(got, with_b2(
+                    b2_ref, lambda: fa.flash_attention(q, kk, v, **kw))),
+                    f"flash_attention {name} tiles {tiles}: differs from "
+                    "the reference build")
+            torch.cuda.synchronize()
+            _, split, blocks = fa.launch_geometry(b, s, 10, 1, t, **tiles)
+            used.add((split, blocks))
+            splits["flash_attention"][split] += 1
+            ea, er, ok = errors(got, want)
+            case_abs, case_rel = max(case_abs, ea), max(case_rel, er)
+            n_checks += 1
+            require(ok, f"flash_attention {name} window={window} tiles "
+                    f"{tiles} split {split}: max abs err {ea:.4g}, max rel "
+                    f"err {er:.4g} beyond {tol}")
+            require(torch.equal(got, again), f"flash_attention {name} "
+                    f"tiles {tiles} split {split}: two launches differ")
+        worst["flash_attention"] = max(worst["flash_attention"], case_abs)
+        report(f"flash_attention {name} B={b} S={s} H=10 KV=1 D=256 T={t} "
+               f"window={window}: {len(att_tiles)} tiles ok, bitwise equal "
+               f"across two launches, max abs err {case_abs:.4g}, max rel "
+               f"err {case_rel:.4g} ({tol}); (split, blocks) "
+               f"{sorted(used)}")
     # every block B2 is built for (head_dim x padded rows x key tile),
     # split 8 across a 512-key cache: narrow heads leave warps without a
     # share of the accumulator, and each rank's partial is packed by the
@@ -729,16 +811,18 @@ def check_ssd(dev, gen, report) -> float:
 
 
 def serve(cfg, params, prompts, dev, report, counters, expected, *,
-          engine_kw=None, after=None) -> dict:
+          engine_kw=None, after=None, warmup_kw=None) -> dict:
     """Serve ``prompts`` x MAX_NEW tokens after ``warmup()``.  ``counters``
     maps each kernel of the path to its launch counter, zeroed just before
     the serve and read just after; ``expected(decode_steps, chunks)``
     gives each kernel's launch count for the decode steps and prefill
-    chunk sizes run, and a line that says why.  ``engine_kw`` goes to the
-    engine (the paged cache's options); ``after`` maps a request's index
-    to the index of one that must be resident, its prompt prefilled,
-    before it is admitted (admission stays FIFO: a held request holds the
-    ones behind it)."""
+    chunk sizes run, and a line that says why (a kernel expected to run
+    must run; one expected at 0 must not).  ``engine_kw`` goes to the
+    engine (the paged cache's options, ``chunked_prefill``), ``warmup_kw``
+    to its ``warmup()`` (default: the full level grid); ``after`` maps a
+    request's index to the index of one that must be resident, its prompt
+    prefilled, before it is admitted (admission stays FIFO: a held
+    request holds the ones behind it)."""
     import torch
     from repro_torch.core import cost_model as cm
     from repro_torch.serving.engine import Request, ServingEngine
@@ -751,7 +835,7 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_stats()
     t0 = time.perf_counter()
-    stats = engine.warmup()
+    stats = engine.warmup(**(warmup_kw or {}))
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     mem1 = torch.cuda.memory_stats()
@@ -798,6 +882,8 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
         while pending and may_admit(pending[0]) and \
                 engine.admit_request(pending[0]):
             pending.popleft()
+            # a monolithic admission prefills and syncs in the call
+            finishing_prefills += not engine.chunked_prefill
         while engine.prefill_pending:
             pq = engine.prefill_step()
             chunks.append(pq.chunk)
@@ -830,7 +916,7 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
     want, why = expected(decode_steps, chunks)
     for name, per_tile in launches.items():
         n = sum(per_tile.values())
-        require(n > 0, f"{name} never launched")
+        require(n > 0 or want[name] == 0, f"{name} never launched")
         require(n == want[name], f"{name}: {n} launches, expected "
                 f"{want[name]} ({why[name]})")
     tokens = engine.tokens_decoded - tokens0
@@ -1649,10 +1735,23 @@ def timings(dev, gen, report) -> list[dict]:
     rows = []
     level0 = H100_LEVEL_TILES[0]
     # block_matmul: the decode step's MLP GEMMs (M = 4 slots)
+    verify_m = BATCH_SLOTS * (SPEC_DEPTH + 1)
     for label, (m, k, n) in (("decode gate/up", (4, 2048, 16384)),
                              ("decode down", (4, 16384, 2048)),
                              ("prefill-chunk gate/up", (16, 2048, 16384)),
-                             ("prefill-chunk down", (16, 16384, 2048))):
+                             ("prefill-chunk down", (16, 16384, 2048)),
+                             ("recurrentgemma-2b decode gate/up",
+                              (4, 2560, 7680)),
+                             ("recurrentgemma-2b decode down",
+                              (4, 7680, 2560)),
+                             ("recurrentgemma-2b prefill-chunk gate/up",
+                              (16, 2560, 7680)),
+                             ("recurrentgemma-2b prefill-chunk down",
+                              (16, 7680, 2560)),
+                             ("recurrentgemma-2b verify gate/up",
+                              (verify_m, 2560, 7680)),
+                             ("recurrentgemma-2b verify down",
+                              (verify_m, 7680, 2560))):
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(k, n, generator=gen, device=dev)
              * k ** -0.5).bfloat16()
@@ -1736,6 +1835,64 @@ def timings(dev, gen, report) -> list[dict]:
                f"sdpa {row['library_ms']:.4f} ms, bound "
                f"{row['bound_ms']:.5f} ms ({row['bound_by']}); per level ms "
                + ", ".join(f"{v:.4f}" for v in per_level)
+               + "; per level (split, blocks) "
+               + ", ".join(f"{g}" for g in geometry))
+    # flash_attention at recurrentgemma-2b's heads (10 over 1, D 256) and
+    # window (2048): its monolithic prefill past the window, and 16-token
+    # chunks at the serve's offsets; the bound counts the keys the window
+    # leaves visible
+    for label, b, s, t, offs in (
+            ("recurrentgemma-2b prefill past the window", 1, RING_PROMPT,
+             RING_PROMPT, [0]),
+            ("recurrentgemma-2b prefill chunk", BATCH_SLOTS, 16, MAX_LEN,
+             [68, 140, 260, 300])):
+        h, d, window = 10, 256, HYBRID_WINDOW
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+        kk = torch.randn(b, t, 1, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, t, 1, d, generator=gen, device=dev).bfloat16()
+        off = torch.tensor(offs, device=dev)
+        kvl = off + s
+        per_level = [cold_ms(lambda a=tl["attention"]: fa.flash_attention(
+            q, kk, v, offset=off, kv_valid_len=kvl, window=window, **a), 20,
+            flush) for tl in H100_LEVEL_TILES]
+        geometry = [fa.launch_geometry(b, s, h, 1, t, **tl["attention"])[1:]
+                    for tl in H100_LEVEL_TILES]
+        qpos = off[:, None] + torch.arange(s, device=dev)
+        j = torch.arange(t, device=dev)[None, None, :]
+        mask = ((j <= qpos[:, :, None])
+                & (j > qpos[:, :, None] - window))[:, None]   # (B,1,S,T)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) for a in (kk, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        # keys read: each row's span [max(0, first query + 1 - window),
+        # last query]; operations: each query's visible keys
+        keys = sum(o + s - max(0, o + 1 - window) for o in offs)
+        visible = sum(min(o + i + 1, window) for o in offs for i in range(s))
+        nbytes = (2 * b * s * h * d + 2 * keys * d) * 2 + 2 * b * 4
+        flops = 4 * h * d * visible
+        row = {"name": "flash_attention", "shape": label, "b": b, "s": s,
+               "t": t, "h": h, "window": window, "offsets": offs,
+               "ms": per_level[0], "ms_per_level": per_level,
+               "split": geometry[0][0], "blocks": geometry[0][1],
+               "split_blocks_per_level": geometry,
+               "plain_ms": cold_ms(lambda: attention_ref(
+                   q, kk, v, offset=off, kv_valid_len=kvl, window=window),
+                   20, flush),
+               "library_ms": cold_ms(library, 20, flush),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                               flops / BF16_FLOPS) * 1e3,
+               "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                            >= flops / BF16_FLOPS else "operations")}
+        rows.append(row)
+        report(f"time flash_attention {label} B={b} S={s} H={h} KV=1 T={t} "
+               f"window={window} offsets={offs}: kernel {row['ms']:.4f} ms "
+               f"(level 0 tiles {level0['attention']}, split "
+               f"{row['split']}, {row['blocks']} blocks), plain "
+               f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); per "
+               "level ms " + ", ".join(f"{v:.4f}" for v in per_level)
                + "; per level (split, blocks) "
                + ", ".join(f"{g}" for g in geometry))
     return rows
@@ -3174,12 +3331,14 @@ def one_step_logits(model, params, tokens, dev):
     return logits[0].float()
 
 
-def spec_partings(what, cfg, params, prompts, got, want, dev, report) -> int:
+def spec_partings(what, cfg, params, prompts, got, want, dev, report, *,
+                  label="spec", other="the plain engine's") -> int:
     """``got`` (spec streams) equals ``want`` (plain streams) stream by
     stream, or parts where the plain logits at that position, recomputed
     through a one-step decode, have their top two tied and both tokens
     there: within SPEC_TIE_ULPS bf16 ulps of the top logit (the
-    family's entry).  Returns the partings."""
+    family's entry).  ``label`` starts the report line, ``other`` names
+    ``want``.  Returns the partings."""
     import numpy as np
     from repro_torch.models.model import Model
     model = Model(cfg)
@@ -3209,8 +3368,8 @@ def spec_partings(what, cfg, params, prompts, got, want, dev, report) -> int:
         parted.append({"rid": rid, "at": t, "top2": top2,
                        "gap_ulps": (top2[0] - top2[1]) / bf16_ulp(top2[0])})
     wide = sum(p["gap_ulps"] > 2 for p in parted)
-    report(f"spec {what}: {len(got) - len(parted)} of {len(got)} streams "
-           f"equal the plain engine's; {len(parted)} part, each at a tie "
+    report(f"{label} {what}: {len(got) - len(parted)} of {len(got)} streams "
+           f"equal {other}; {len(parted)} part, each at a tie "
            f"of the plain logits within {ulps} bf16 ulps, {wide} of them "
            f"beyond two ulps (gaps in bf16 ulps: "
            f"{[round(p['gap_ulps'], 2) for p in parted]})")
@@ -3702,6 +3861,500 @@ def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the hybrid family, recurrentgemma-2b (RG-LRU recurrence and a
+# ring of the last 2048 keys per attention layer) at full width and depth
+HYBRID = "recurrentgemma-2b"
+HYBRID_WINDOW = 2048
+# the ring-wrap check's prompt: longer than the window, so B2's window
+# binds in the monolithic prefill and the 16-token chunks wrap the ring;
+# its cache row (the ring is O(window): the row's length costs nothing)
+RING_PROMPT = 2100
+RING_MAX_LEN = 2112
+RING_STEPS = 8
+# ring-wrap logits, monolithic against chunked, relative to the largest
+# logit (the logits are bf16 products cast to fp32: an absolute 2e-2 is
+# below one bf16 ulp at the largest logits of a 256,000-word vocabulary)
+RING_RTOL = 2e-2
+
+
+def hybrid_launches(cfg, monolithic: int = 0):
+    """Every forward pass (a decode step, a prefill chunk, a monolithic
+    prefill) runs each layer's three MLP GEMMs through B1; attention runs
+    over the ring in plain ops, except in a monolithic prefill, which runs
+    B2 once per attention layer; B3 and B4 never run.  ``monolithic``:
+    the serve's monolithic admissions."""
+    from repro_torch.core.profiles import block_kinds
+    n = cfg.num_layers
+    attn = sum(k == "attn_local" for k in block_kinds(cfg))
+
+    def expected(decode_steps, chunks):
+        passes = decode_steps + len(chunks) + monolithic
+        return ({"block_matmul": 3 * n * passes,
+                 "flash_attention": attn * monolithic,
+                 "flash_attention_paged": 0, "ssd_scan": 0},
+                {"block_matmul": f"{3 * n} per forward pass x {passes} "
+                 f"passes = {decode_steps} decode steps + {len(chunks)} "
+                 f"prefill chunks + {monolithic} monolithic prefills",
+                 "flash_attention": f"{attn} per monolithic prefill x "
+                 f"{monolithic}; the ring's attention runs in plain ops",
+                 "flash_attention_paged": "no pageable leaf",
+                 "ssd_scan": "no SSD layer"})
+    return expected
+
+
+def _clone(tree):
+    from repro_torch.models.params import tree_map_with_path
+    return tree_map_with_path(lambda _, a: a.clone(), tree)
+
+
+def hybrid_ring_check(cfg, params, dev, report) -> dict:
+    """One RING_PROMPT-token prompt through the model in a RING_MAX_LEN
+    row: once as a monolithic prefill (B2 with the 2048-token window
+    binding, then the ring filled with the last 2048 keys), once as
+    16-token chunks (the ring wraps); RING_STEPS greedy decode steps
+    follow from each, fed the monolithic side's tokens.  Logits within
+    RING_RTOL of the largest, the greedy tokens equal where the
+    monolithic side's top two are more than two bf16 ulps apart, the ring
+    positions equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core.profiles import block_kinds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves_with_path
+
+    model = Model(cfg)
+    rng = np.random.default_rng(12)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, RING_PROMPT),
+                             device=dev)
+    t0 = time.perf_counter()
+    mono = model.init_cache(1, RING_MAX_LEN, dev)
+    b2 = fa.launch_count()
+    lg_mono, _ = model.prefill(params, {"tokens": prompt[None]}, mono)
+    torch.cuda.synchronize()
+    b2 = fa.launch_count() - b2
+    mono_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = model.init_cache(1, RING_MAX_LEN, dev)
+    for start in range(0, RING_PROMPT, 16):
+        valid = min(16, RING_PROMPT - start)
+        toks = torch.zeros((1, 16), dtype=torch.int64, device=dev)
+        toks[0, :valid] = prompt[start:start + valid]
+        lg_chunk, _ = model.prefill_chunk(params, {"tokens": toks}, chunked,
+                                          start, valid)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    require(b2 == sum(k == "attn_local" for k in block_kinds(cfg)),
+            f"ring check: {b2} flash_attention launches in the monolithic "
+            "prefill")
+    rel, unclear, tokens = [], 0, []
+    lgs = [lg_mono[0].float(), lg_chunk[0].float()]
+    for step in range(RING_STEPS + 1):
+        top2 = lgs[0].topk(2).values.tolist()
+        scale = lgs[0].abs().max().item()
+        rel.append((lgs[0] - lgs[1]).abs().max().item() / scale)
+        tok = int(lgs[0].argmax())
+        clear = top2[0] - top2[1] > 2 * bf16_ulp(top2[0])
+        unclear += not clear
+        require(not clear or int(lgs[1].argmax()) == tok,
+                f"ring check step {step}: monolithic token {tok}, chunked "
+                f"{int(lgs[1].argmax())}, top two {top2}")
+        tokens.append(tok)
+        if step == RING_STEPS:
+            break
+        pos = torch.tensor([RING_PROMPT + step], device=dev)
+        nxt = torch.tensor([tok], device=dev)
+        lgs = [model.decode_step(params, {"tokens": nxt}, c, pos)[0][0]
+               .float() for c in (mono, chunked)]
+    torch.cuda.synchronize()
+    same_pos = all(torch.equal(a, b) for (p, a), (_, b) in zip(
+        tree_leaves_with_path(mono), tree_leaves_with_path(chunked))
+        if p[-1] == "pos")
+    require(same_pos, "ring check: the ring positions differ")
+    require(max(rel) <= RING_RTOL, f"ring check: logits differ by "
+            f"{max(rel):.4g} of the largest logit (tolerance {RING_RTOL})")
+    report(f"hybrid ring check: a {RING_PROMPT}-token prompt in a "
+           f"{RING_MAX_LEN}-token row, monolithic ({b2} flash_attention "
+           f"launches, window {cfg.rglru.window_size} binding; {mono_s:.2f} s) "
+           f"against {-(-RING_PROMPT // 16)} 16-token chunks (the ring "
+           f"wraps; {chunk_s:.2f} s), then {RING_STEPS} decode steps: max "
+           f"|diff| / max |logit| per step "
+           f"{[round(r, 5) for r in rel]} (tolerance {RING_RTOL}), tokens "
+           f"equal ({unclear} steps within two bf16 ulps at the top), ring "
+           "positions equal")
+    return {"rel_diff": rel, "tokens": tokens, "unclear_steps": unclear,
+            "flash_attention_launches": b2, "monolithic_s": mono_s,
+            "chunked_s": chunk_s}
+
+
+def whole_model_check_hybrid(cfg, params, prompt, dev, report) -> dict:
+    """Kernels against plain versions on the same weights: a monolithic
+    prefill of ``prompt`` (B2 and B1), a decode step after it, and a
+    16-token chunk on top (B1; the ring in plain ops on both sides)."""
+    import torch
+    from repro_torch.models.model import Model
+
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    n = toks.shape[1]
+    rows = {m: m.init_cache(1, MAX_LEN, dev) for m in (kern, plain)}
+    lg = {"monolithic prefill": {
+        m: m.prefill(params, {"tokens": toks}, rows[m])[0]
+        for m in (kern, plain)}}
+    nxt = lg["monolithic prefill"][plain].argmax(dim=-1)
+    pos = torch.tensor([n], device=dev)
+    lg["decode step"] = {m: m.decode_step(params, {"tokens": nxt}, rows[m],
+                                          pos)[0] for m in (kern, plain)}
+    chunk = toks[:, :16]
+    lg["prefill chunk"] = {m: m.prefill_chunk(params, {"tokens": chunk},
+                                              rows[m], n + 1, 16)[0]
+                           for m in (kern, plain)}
+    results = {}
+    for name, pair in lg.items():
+        diff = (pair[kern] - pair[plain]).abs().max().item()
+        scale = pair[plain].abs().max().item()
+        same_top = bool((pair[kern].argmax(-1)
+                         == pair[plain].argmax(-1)).all())
+        results[name] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                         "same_argmax": same_top}
+        report(f"whole model {cfg.name} {name}: max |kernels - plain| "
+               f"{diff:.4g} (max |logit| {scale:.4g}, tolerance "
+               f"{LOGIT_RTOL} x max |logit|), same argmax: {same_top}")
+        require(diff <= LOGIT_RTOL * scale,
+                f"whole-model {cfg.name} {name} logits drift {diff:.4g}")
+    return results
+
+
+def _hybrid_mixer(model, kind, p, xa, positions, cache, t, live, valid_len):
+    """One hybrid layer's mixer (the RG-LRU block or the ring attention)
+    on ``xa``, updating ``cache`` in place."""
+    from repro_torch.models import rglru as R
+    if kind == "rec":
+        return R.recurrent_block(p["mixer"], xa, cfg=model.cfg, cache=cache,
+                                 valid_len=valid_len, live=live)
+    return model._windowed_attention(p["attn"], xa, positions=positions,
+                                     cache=cache, t=t, live=live,
+                                     valid_len=valid_len)
+
+
+def hybrid_restore_check(cfg, params, dev, report) -> dict:
+    """The hybrid's restore pass on the card, four rows prefilled with 16
+    random tokens, budgets 0, 1, 3 and d + 1 (drafts are the verify's own
+    continuation, so each row emits its budget).
+
+    The model's verify: B1 launches 3 x 26 x 2 times (pass 1 and the
+    restore pass) and B2 none; the row that emits nothing keeps every
+    leaf bit for bit.  Its state against plain decode steps is reported,
+    not gated (the two paths' residual streams part by bf16 roundings,
+    which 26 layers carry on).
+
+    Layer by layer on the plain path's residual stream (both paths given
+    the same input): pass 1 writes nothing; the restore pass against
+    ``n_emit`` single steps: RG-LRU state h within STATE_RTOL of its
+    largest entry, conv state and ring keys and values within two bf16
+    ulps, ring positions equal; the row at 0 bit-equal to the state
+    carried in."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model, cache_batch_axis
+    from repro_torch.models.params import tree_leaves_with_path
+
+    model = Model(cfg)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                           device=dev)
+    cache = model.init_cache(4, MAX_LEN, dev)
+    logits, _ = model.prefill_chunk(params, {"tokens": toks}, cache, 0, 16)
+    first = logits.argmax(-1)
+    pos = torch.full((4,), 16, dtype=torch.int64, device=dev)
+    full = torch.full_like(pos, SPEC_DEPTH + 1)
+    drafts = torch.zeros((4, SPEC_DEPTH), dtype=torch.int64, device=dev)
+    for _ in range(SPEC_DEPTH + 1):
+        block, _, accepted, _, _ = model.verify_quantum(
+            params, first, drafts, _clone(cache), pos, full)
+        drafts = block.T[:, :SPEC_DEPTH].contiguous()
+    require(accepted.tolist() == [SPEC_DEPTH] * 4, f"hybrid restore "
+            f"check: the verify's own continuation accepted "
+            f"{accepted.tolist()}")
+    budget = torch.tensor([0, 1, 3, SPEC_DEPTH + 1], device=dev)
+    spec = _clone(cache)
+    b1, b2 = bm.launch_count(), fa.launch_count()
+    _, n_emit, _, _, _ = model.verify_quantum(params, first, drafts, spec,
+                                              pos, budget)
+    torch.cuda.synchronize()
+    b1, b2 = bm.launch_count() - b1, fa.launch_count() - b2
+    require(b1 == 2 * 3 * cfg.num_layers and b2 == 0, f"hybrid restore "
+            f"check: {b1} block_matmul and {b2} flash_attention launches "
+            "for one verify")
+    require(torch.equal(n_emit, budget), f"hybrid restore check: emitted "
+            f"{n_emit.tolist()}, budgets {budget.tolist()}")
+    seq = torch.cat([first[:, None], drafts], dim=1)
+    plain = _clone(cache)
+    for j in range(SPEC_DEPTH + 1):
+        model.decode_step(params, {"tokens": seq[:, j]}, plain, pos + j,
+                          live=n_emit > j)
+    torch.cuda.synchronize()
+    whole = {}
+    for path, got in tree_leaves_with_path(spec):
+        ax = cache_batch_axis(path)
+        start = dict(tree_leaves_with_path(cache))[path]
+        require(torch.equal(got.select(ax, 0), start.select(ax, 0)),
+                f"hybrid restore check: the row that emitted nothing "
+                f"changed {'/'.join(path)}")
+        if path[-1] != "pos":
+            want = dict(tree_leaves_with_path(plain))[path].float()
+            kind = path[-1]
+            whole[kind] = max(whole.get(kind, 0.0), (
+                (got.float() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item())
+    # layer by layer, both paths on the plain path's residual stream
+    s = SPEC_DEPTH + 1
+    x = L.embed(params["embed"], seq, cfg)
+    positions = model._default_positions(4, s, pos, dev)
+    none = torch.zeros(4, dtype=torch.bool, device=dev)
+    worst = {"h": 0.0, "conv": 0.0, "k": 0.0, "v": 0.0}
+    for i, (kind, p, c) in enumerate(model._plan_blocks(params, cache)):
+        xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
+        restored = _clone(c)
+        _hybrid_mixer(model, kind, p, xa, positions, restored, pos, none, s)
+        require(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves_with_path(restored), tree_leaves_with_path(c))),
+            f"hybrid restore check layer {i} ({kind}): pass 1 wrote state")
+        _hybrid_mixer(model, kind, p, xa, positions, restored, pos,
+                      n_emit > 0, n_emit)
+        stepped, ys = _clone(c), []
+        for j in range(s):
+            ys.append(_hybrid_mixer(model, kind, p, xa[:, j:j + 1],
+                                    positions[:, j:j + 1], stepped, pos + j,
+                                    n_emit > j, None))
+        torch.cuda.synchronize()
+        for (name, a), (_, b), (_, c0) in zip(
+                tree_leaves_with_path(restored),
+                tree_leaves_with_path(stepped), tree_leaves_with_path(c)):
+            name = name[-1]
+            require(torch.equal(a[0], c0[0]), f"hybrid restore check layer "
+                    f"{i} ({kind}): the row that emitted nothing changed "
+                    f"its {name}")
+            if name == "pos":
+                require(torch.equal(a, b), f"hybrid restore check layer "
+                        f"{i}: ring positions differ from single steps")
+                continue
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            ok = (bool(diff.max() <= STATE_RTOL * b.abs().max())
+                  if name == "h" else
+                  bool((diff <= ATOL + RTOL * b.abs()).all()))
+            rel = (diff.max() / b.abs().max().clamp_min(1e-30)).item()
+            worst[name] = max(worst[name], rel)
+            require(ok, f"hybrid restore check layer {i} ({kind}): {name} "
+                    f"after the restore pass differs from "
+                    f"{n_emit.tolist()} single steps by {rel:.4g} of its "
+                    "largest entry")
+        x = x + torch.cat(ys, dim=1)
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x,
+                                                   cfg.norm_type),
+                            cfg.activation)
+    report(f"hybrid restore check: a verify emitting {n_emit.tolist()} "
+           f"tokens ({b1} block_matmul, {b2} flash_attention launches); the "
+           "row that emits nothing keeps every leaf bit for bit; layer by "
+           "layer on one residual stream, pass 1 writes nothing and the "
+           "restore pass against single steps: max |diff| / max |state| h "
+           f"{worst['h']:.4g} (tolerance {STATE_RTOL}), conv "
+           f"{worst['conv']:.4g}, ring k {worst['k']:.4g}, v "
+           f"{worst['v']:.4g} (two bf16 ulps), ring positions equal; whole "
+           "model against single steps (not gated: the residual streams "
+           "part): " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                 sorted(whole.items())))
+    return {"n_emit": n_emit.tolist(), "layers": worst, "model": whole}
+
+
+def hybrid_spec(cfg, params, plain, prompts, dev, report, seed,
+                counters) -> dict:
+    """A graphed speculative engine (depth SPEC_DEPTH) against the graphed
+    plain engine ``plain`` on the repetitive arm (constant-token prompts,
+    SPEC_REP_NEW new tokens), one serve each: exact launches (B1 3 x 26
+    per plain step and chunk, twice that per verify; B2, B3, B4 none),
+    streams equal or parting at two-ulp ties, verifies, acceptances and
+    rollbacks all above 0.  When constant prompts draft nothing, echo
+    prompts s + g + s (g the plain engine's continuation of s) are served
+    too, as phase 10 does for mamba2."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 10)
+    spec = spec_engine(cfg, params, dev, report)
+    arms = {"repetitive": [np.full(n, int(rng.integers(cfg.vocab_size)),
+                                   np.int32) for n in SPEC_REP_LENS]}
+    n = cfg.num_layers
+    out = {"arms": {}}
+    totals = collections.Counter()
+    for arm in ("repetitive", "echo"):
+        if arm == "echo":
+            if all(totals[k] > 0 for k in ("spec_quanta", "tokens_accepted",
+                                            "spec_rollbacks")):
+                break
+            seeds = [rng.integers(0, cfg.vocab_size, m).astype(np.int32)
+                     for m in SPEC_ECHO_LENS]
+            cont = spec_serve(plain, seeds, SPEC_REP_NEW + SPEC_DEPTH, {})
+            arms["echo"] = [np.concatenate([s_, np.asarray(g, np.int32),
+                                            s_])
+                            for s_, g in zip(seeds, cont["streams"])]
+        runs = {which: spec_serve(eng, arms[arm], SPEC_REP_NEW, counters)
+                for which, eng in (("plain", plain), ("spec", spec))}
+        for which, r in runs.items():
+            passes = r["decode_steps"] + len(r["chunks"])
+            want = {"block_matmul": 3 * n * (passes + 2 * r["verifies"]),
+                    "flash_attention": 0, "flash_attention_paged": 0,
+                    "ssd_scan": 0}
+            require(r["launches"] == want, f"hybrid spec {arm} {which}: "
+                    f"launches {r['launches']}, expected {want}")
+        st = runs["spec"]["spec_stats"]
+        for key in ("spec_quanta", "tokens_accepted", "spec_rollbacks"):
+            totals[key] += st[key]
+        parted = spec_partings(f"{cfg.name} {arm}", cfg, params, arms[arm],
+                               runs["spec"]["streams"],
+                               runs["plain"]["streams"], dev, report)
+        out["arms"][arm] = {
+            "partings": len(parted), "parted": parted,
+            "spec_stats": st, "verifies": runs["spec"]["verifies"],
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+            "launches": {k: r["launches"] for k, r in runs.items()}}
+        report(f"spec {cfg.name} {arm} ({len(arms[arm])} requests x "
+               f"{SPEC_REP_NEW + 1} tokens, one serve each): plain "
+               f"{runs['plain']['wall_s']:.3f} s, spec "
+               f"{runs['spec']['wall_s']:.3f} s; {st['spec_quanta']} "
+               f"verifies and {st['spec_fallbacks']} fallbacks, draft hit "
+               f"rate {st['draft_hit_rate']:.3f} ({st['tokens_accepted']} of "
+               f"{st['tokens_drafted']}), {st['spec_rollbacks']} rollbacks; "
+               f"launches {runs['spec']['launches']} (exact)")
+    require(all(totals[k] > 0 for k in ("spec_quanta", "tokens_accepted",
+                                        "spec_rollbacks")),
+            f"hybrid spec: over the arms {dict(totals)}: verifies, "
+            "acceptances and rollbacks must all run")
+    out["totals"] = dict(totals)
+    del spec
+    gc.collect()
+    return out
+
+
+def serve_hybrid(dev, counters, report, seed) -> dict:
+    """Phase 11 (see the module docstring).  Each check that fails is
+    reported and the phase goes on with the checks that do not depend on
+    it; the phase fails at its end if any did."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.profiles import block_kinds
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID)
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is on: the RG-LRU gates' fp32 products must not use it")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+    torch.cuda.synchronize()
+    rg = cfg.rglru
+    report(f"{HYBRID}: {cfg.num_layers} layers {block_kinds(cfg)[:3]} x "
+           f"{cfg.num_layers // 3} + {block_kinds(cfg)[-2:]}, d_model "
+           f"{cfg.d_model}, lru_width {rg.lru_width}, {cfg.num_heads} heads "
+           f"over {cfg.num_kv_heads} KV head of {cfg.head_dim}, window "
+           f"{rg.window_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+           f"weights made on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    warm = {"levels": [cm.grid_point(i) for i in SPEC_LEVELS],
+            "quantum_buckets": SPEC_BUCKETS}
+    # B1 and B2, then what runs outside the port's kernels by family:
+    # cuBLAS's bf16 products (the projections, the unembedding), its fp32
+    # ones (the RG-LRU gates' block-diagonal products, the ring's scores
+    # and context), PyTorch's elementwise, concatenation and reduction
+    # kernels
+    groups = {"block_matmul": "block_matmul_kernel",
+              "flash_attention": "flash_attention_kernel",
+              "cublas bf16": "nvjet", "cublas fp32": "gemmSN",
+              "elementwise": "elementwise_kernel",
+              "cat": "CatArrayBatchedCopy", "reduce": "reduce_kernel"}
+    out: dict = {"failures": [], "seconds": {}}
+
+    def attempt(name, fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        except SmokeFailure as e:
+            out["failures"].append(f"{name}: {e}")
+            report(f"hybrid {name} FAILED: {e}")
+            return None
+        finally:
+            out["seconds"][name] = time.perf_counter() - t
+
+    expected = hybrid_launches(cfg)
+    eager = attempt("eager serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, expected,
+        engine_kw={"cuda_graphs": False}, warmup_kw=warm))
+    graphed = attempt("graphed serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, expected,
+        warmup_kw=warm))
+    engine = graphed[0] if graphed else None
+    if graphed:
+        out["serve"] = graphed[1]
+    if eager and graphed:
+        out["eager"] = eager[1]
+        attempt("eager against graphed", lambda: same_streams(
+            HYBRID, graphed[1], eager[1], report))
+    del eager
+    mono = attempt("monolithic serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters,
+        hybrid_launches(cfg, monolithic=len(prompts)),
+        engine_kw={"cuda_graphs": False, "chunked_prefill": False},
+        warmup_kw={**warm, "prompt_lens": PROMPT_LENS}))
+    if mono:
+        out["monolithic"] = mono[1]
+        if graphed:
+            parted = attempt("monolithic against chunked", lambda:
+                             spec_partings(
+                                 f"{HYBRID} monolithic", cfg, params,
+                                 prompts, mono[1]["streams"],
+                                 graphed[1]["streams"], dev, report,
+                                 label="hybrid",
+                                 other="the chunked serve's"))
+            out["monolithic_partings"] = parted
+    del mono
+    gc.collect()
+    out["ring"] = attempt("ring check", lambda: hybrid_ring_check(
+        cfg, params, dev, report))
+    out["whole_model"] = attempt("whole model", lambda:
+                                 whole_model_check_hybrid(
+                                     cfg, params, prompts[3], dev, report))
+    out["restore"] = attempt("restore check", lambda: hybrid_restore_check(
+        cfg, params, dev, report))
+    if engine is not None:
+        out["spec"] = attempt("spec", lambda: hybrid_spec(
+            cfg, params, engine, prompts, dev, report, seed, counters))
+        out["profile_chunk"] = attempt("chunk profile", lambda:
+                                       profile_prefill_chunk(
+                                           engine, prompts[1], report,
+                                           groups))
+        out["profile_quantum"] = attempt("quantum profile", lambda:
+                                         profile_quantum(engine, prompts,
+                                                         report, groups))
+    del engine, graphed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"hybrid: phase 11 took {out['phase_s']:.1f} s ("
+           + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items())
+           + ")")
+    require(not out["failures"], "phase 11: " + "; ".join(out["failures"]))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3760,13 +4413,18 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     b2_ref = reference_b2(args.b2_reference) if args.b2_reference else None
     worst = check_kernels(dev, gen, report, b2_ref)
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_paged as fap
+    from repro_torch.kernels import ssd_scan as ssd
+    all_counters = {"block_matmul": bm.LAUNCHES,
+                    "flash_attention": fa.LAUNCHES,
+                    "flash_attention_paged": fap.LAUNCHES,
+                    "ssd_scan": ssd.LAUNCHES}
     worst["ssd_scan"] = check_ssd(dev, gen, report)
     worst["flash_attention_paged"] = check_paged(dev, gen, report)
     ssd_phases = ssd_phase_breakdown(dev, gen, report)
 
-    from repro_torch.kernels import block_matmul as bm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
     rng = np.random.default_rng(args.seed)
     served, prof, model_check, host = {}, {}, {}, {}
     for name in ("gemma-2b", "mamba2-780m"):
@@ -3843,6 +4501,7 @@ def main() -> int:
                                   "flash_attention": fa.LAUNCHES,
                                   "ssd_scan": ssd.LAUNCHES},
                             report, args.seed, card)
+    hybrid = serve_hybrid(dev, all_counters, report, args.seed)
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -3852,6 +4511,15 @@ def main() -> int:
             if isinstance(res, dict) and "arms" in res:
                 for arm in res["arms"].values():
                     spec_launches.update(arm["launches"]["spec"])
+    # phase 11's serves: graphed chunked, monolithic, and both sides of
+    # its speculative arms
+    hybrid_launches_by = collections.Counter()
+    for key in ("serve", "monolithic"):
+        for name, per_tile in hybrid[key]["launches"].items():
+            hybrid_launches_by[name] += sum(per_tile.values())
+    for arm in hybrid["spec"]["arms"].values():
+        for side in arm["launches"].values():
+            hybrid_launches_by.update(side)
     kernels = []
     for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
@@ -3870,19 +4538,21 @@ def main() -> int:
             "launches": sum(served[model]["launches"][name].values()),
             "cluster_launches": cluster["launches"].get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
+            "hybrid_launches": hybrid_launches_by.get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     spec_s = sum(served[n]["spec"]["phase_s"] for n in ("gemma-2b",
                                                         "mamba2-780m"))
     total_s = time.perf_counter() - t_script
-    report(f"chip_smoke: phase 10 took {spec_s:.1f} s; the script "
-           f"{total_s:.1f} s from the build on")
+    report(f"chip_smoke: phase 10 took {spec_s:.1f} s, phase 11 "
+           f"{hybrid['phase_s']:.1f} s; the script {total_s:.1f} s from the "
+           "build on")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
-        "ssd_phases": ssd_phases, "cluster": cluster,
+        "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Architecture config registry of the PyTorch port.
 
-Holds the configs ported so far (the dense and ssm families).
+Holds the configs ported so far (the dense, ssm and hybrid families).
 ``get_config(name)`` returns the published config; ``get_reduced_config``
 applies the same reduction rules as ``repro.configs.get_reduced_config``
 (few layers, narrow widths, tiny vocab) for CPU tests; ``get_shape(name)``
@@ -15,11 +15,13 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import gemma_2b, mamba2_780m, starcoder2_3b
+from repro_torch.configs import gemma_2b, mamba2_780m, \
+    recurrentgemma_2b, starcoder2_3b
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (gemma_2b, mamba2_780m, starcoder2_3b)
+    m.CONFIG.name: m.CONFIG
+    for m in (gemma_2b, mamba2_780m, recurrentgemma_2b, starcoder2_3b)
 }
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
@@ -43,7 +45,8 @@ get_shape = shape_config
 def get_reduced_config(name: str) -> ModelConfig:
     """Same-family tiny config: narrow dims, tiny vocab.  Attention
     widths shrink for the attention families only; an ssm config keeps
-    its zero head fields and shrinks its ``SSMConfig`` instead (the
+    its zero head fields and shrinks its ``SSMConfig`` instead, and a
+    hybrid shrinks its ``RGLRUConfig`` to one (rec, rec, attn) group (the
     reference registry's rules)."""
     cfg = get_config(name)
     kw: dict = dict(
@@ -58,6 +61,10 @@ def get_reduced_config(name: str) -> ModelConfig:
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, d_inner=256, head_dim=32, state_dim=16, chunk_size=16)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(
+            cfg.rglru, lru_width=128, window_size=32, scan_chunk=16)
+        kw["num_layers"] = 3   # one (rec, rec, attn) group
     if cfg.sliding_window:
         kw["sliding_window"] = 32
     return dataclasses.replace(cfg, **kw)

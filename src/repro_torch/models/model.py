@@ -1,14 +1,16 @@
-"""Model assembly of the PyTorch port, dense and ssm families
+"""Model assembly of the PyTorch port, dense, ssm and hybrid families
 (``repro.models.model``).
 
-Parameters and caches keep the reference's stacked leading ``"layers"``
-axis (``blocks/dense/...``, ``blocks/ssm/...``), so their path strings
-and shapes line up with the JAX trees; the layers run as a Python loop
-over views of the stacked tensors.  Caches are updated in place: the
-decode entry points return the cache they were given, and a fused decode
-quantum masks the cache write of every row past its step budget (KV rows,
-conv and SSD state) instead of reverting it afterwards as the reference's
-``select_cache_rows`` does.
+Parameters and caches keep the reference's layer plan and its stacked
+leading ``"layers"`` axis (``blocks/dense/...``, ``blocks/ssm/...``; the
+hybrid's ``blocks/rec_0``, ``blocks/rec_1``, ``blocks/attn_local_2``
+stacked over its groups, then the unstacked ``epi_0``, ``epi_1``), so
+their path strings and shapes line up with the JAX trees; the layers run
+as a Python loop over views of the stacked tensors.  Caches are updated
+in place: the decode entry points return the cache they were given, and
+a fused decode quantum masks the cache write of every row past its step
+budget (KV rows, conv, SSD and RG-LRU state, ring slots) instead of
+reverting it afterwards as the reference's ``select_cache_rows`` does.
 
 A paged cache (``init_paged_cache``) keeps the linear KV leaves as
 physical page pools addressed through a per-slot ``"page_table"`` that
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params, \
     tree_leaves_with_path, tree_map_with_path
@@ -47,8 +50,8 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
                                init=s.init, init_scale=s.init_scale), tree)
 
 
-# the families the port serves; each stacks one block kind of its name
-FAMILIES = ("dense", "ssm")
+# the families the port serves
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -67,11 +70,19 @@ LayerPlan = TorchLayerPlan
 
 def plan_layers(cfg: ModelConfig) -> LayerPlan:
     """The reference's ``make_plan`` for the families the port serves:
-    one stack of ``cfg.num_layers`` blocks of the family's kind."""
+    dense and ssm stack ``cfg.num_layers`` blocks of the family's kind;
+    the hybrid repeats its block pattern (``"rec"`` or ``"attn_local"``)
+    and unrolls the remainder after the groups."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the {FAMILIES} families only "
             f"(got {cfg.family!r})")
+    if cfg.family == "hybrid":
+        pat = tuple("rec" if p == "rec" else "attn_local"
+                    for p in cfg.rglru.block_pattern)
+        n_groups = cfg.num_layers // len(pat)
+        rem = cfg.num_layers - n_groups * len(pat)
+        return LayerPlan((), pat, n_groups, pat[:rem])
     return LayerPlan((), (cfg.family,), cfg.num_layers, ())
 
 
@@ -81,12 +92,19 @@ def plan_layers(cfg: ModelConfig) -> LayerPlan:
 make_plan = plan_layers
 
 
-def _block_specs(cfg: ModelConfig) -> dict:
-    if cfg.family == "ssm":
+def _kind_specs(cfg: ModelConfig, kind: str) -> dict:
+    """One block's parameters (the reference's ``_block_specs``)."""
+    if kind == "ssm":
         return {"ln1": L.norm_specs(cfg),
                 "mixer": ssm_mod.ssm_specs(cfg, cfg.ssm)}
-    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
-            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    if kind == "rec":
+        return {"ln1": L.norm_specs(cfg),
+                "mixer": rg_mod.rglru_specs(cfg, cfg.rglru),
+                "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    if kind in ("dense", "attn_local"):
+        return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+                "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    raise ValueError(kind)
 
 
 def _kv_specs(cfg: ModelConfig, batch: int, t_max: int) -> dict:
@@ -111,14 +129,66 @@ def _ssm_state_specs(cfg: ModelConfig, batch: int) -> dict:
                              init="zeros")}
 
 
+def _rec_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    rg = cfg.rglru
+    return {"h": ParamSpec((batch, rg.lru_width), torch.float32,
+                           ("batch", "inner"), init="zeros"),
+            "conv": ParamSpec((batch, rg.conv_width - 1, rg.lru_width),
+                              cfg.cache_dtype(), ("batch", None, "inner"),
+                              init="zeros")}
+
+
+def _kind_cache_leaves(cfg: ModelConfig, kind: str, batch: int,
+                      t_max: int) -> dict:
+    """One block's cache (the reference's ``_block_cache_specs``)."""
+    if kind == "dense":
+        return _kv_specs(cfg, batch, t_max)
+    if kind == "ssm":
+        return _ssm_state_specs(cfg, batch)
+    if kind == "rec":
+        return _rec_state_specs(cfg, batch)
+    if kind == "attn_local":
+        return rg_mod.ring_specs(cfg, batch)
+    raise ValueError(kind)
+
+
+def _plan_tree(plan: LayerPlan, one) -> dict:
+    """A tree in the reference's layout: ``one(kind)`` per block, the
+    scanned group stacked under ``blocks`` (keyed by kind, or ``kind_j``
+    when the group holds several), the epilogue as ``epi_i``.  (No family
+    the port serves has a prologue.)"""
+    out: dict = {}
+    if plan.n_groups:
+        out["blocks"] = stack_specs(
+            {_group_key(plan, j): one(k)
+             for j, k in enumerate(plan.scan_kinds)}, plan.n_groups)
+    for i, kind in enumerate(plan.epilogue):
+        out[f"epi_{i}"] = one(kind)
+    return out
+
+
+def _group_key(plan: LayerPlan, j: int) -> str:
+    kind = plan.scan_kinds[j]
+    return kind if len(plan.scan_kinds) == 1 else f"{kind}_{j}"
+
+
 def _layer(tree: PyTree, i: int) -> PyTree:
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return tree_map_with_path(lambda _, a: a[i], tree)
 
 
+def _blank_leaf(path: tuple[str, ...], spec: ParamSpec, device):
+    """A fresh cache leaf: zeros, except a ring's ``pos``, which starts at
+    -1 (never written: a 0 would be a visible key at position 0)."""
+    if path[-1] == "pos":
+        return torch.full(spec.shape, -1, dtype=spec.dtype, device=device)
+    return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+
+
 class TorchModel:
-    """The dense decoder (``family == "dense"``) and the attention-free
-    Mamba-2 stack (``family == "ssm"``)."""
+    """The dense decoder (``family == "dense"``), the attention-free
+    Mamba-2 stack (``family == "ssm"``) and the RG-LRU / local-attention
+    hybrid (``family == "hybrid"``)."""
 
     def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
         if cfg.family not in FAMILIES:
@@ -126,6 +196,7 @@ class TorchModel:
                 f"{cfg.name}: the port serves the {FAMILIES} families "
                 f"only (got {cfg.family!r})")
         self.cfg = cfg
+        self.plan = plan_layers(cfg)
         # False runs every kernel's plain version, on any device (the
         # on-card whole-model check compares the two)
         self.use_kernels = use_kernels
@@ -133,10 +204,10 @@ class TorchModel:
     # -- parameters ------------------------------------------------------
     def param_specs(self) -> dict:
         cfg = self.cfg
-        return {"embed": L.embed_specs(cfg),
-                "blocks": stack_specs({cfg.family: _block_specs(cfg)},
-                                      cfg.num_layers),
-                "final_norm": L.norm_specs(cfg)}
+        specs = {"embed": L.embed_specs(cfg)}
+        specs.update(_plan_tree(self.plan, lambda k: _kind_specs(cfg, k)))
+        specs["final_norm"] = L.norm_specs(cfg)
+        return specs
 
     def init(self, generator: torch.Generator, device) -> PyTree:
         return init_params(self.param_specs(), generator, device)
@@ -144,29 +215,27 @@ class TorchModel:
     # -- caches ------------------------------------------------------------
     # veltair: ignore[paged-leaf-coverage] the rule's anchor is the reference's Model.cache_specs, which this class cannot reach under its own name; paged_leaf_paths below derives the pageable leaves from this method, and tests/test_torch_paging.py holds them equal to the reference's
     def cache_specs(self, batch: int, t_max: int) -> dict:
-        cfg = self.cfg
-        leaves = (_ssm_state_specs(cfg, batch) if cfg.family == "ssm"
-                  else _kv_specs(cfg, batch, t_max))
-        return {"blocks": stack_specs({cfg.family: leaves},
-                                      cfg.num_layers)}
+        return _plan_tree(self.plan, lambda k: _kind_cache_leaves(
+            self.cfg, k, batch, t_max))
 
     def init_cache(self, batch: int, t_max: int, device) -> PyTree:
         return tree_map_with_path(
-            lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            lambda p, s: _blank_leaf(p, s, device),
             self.cache_specs(batch, t_max))
 
     # -- paged caches ------------------------------------------------------
     def paged_leaf_paths(self) -> frozenset:
         """Paths of the cache leaves that page: those whose spec carries a
-        ``"seq"`` axis (attention k/v).  Recurrent state (the ssm family's
-        conv and SSD leaves) is O(1) per slot and stays dense."""
+        ``"seq"`` axis (attention k/v).  Recurrent state (conv, SSD and
+        RG-LRU leaves) is O(1) per slot and the hybrid's ring O(window):
+        they stay dense."""
         return frozenset(path for path, spec in tree_leaves_with_path(
             self.cache_specs(1, 8)) if "seq" in spec.axes)
 
     def has_recurrent_leaves(self) -> bool:
         """True when a cache leaf carries recurrent state (no ``"seq"``
-        axis: the ssm family's conv and SSD leaves): those leaves need the
-        speculative verify's restore pass."""
+        axis: conv, SSD and RG-LRU leaves, the hybrid's ring): those
+        leaves need the speculative verify's restore pass."""
         return not self.all_cache_leaves_paged()
 
     # the reference's name, bound without a second ``def`` (see
@@ -215,7 +284,7 @@ class TorchModel:
         table rides inside the cache dict, so no entry point changes its
         signature."""
         cache = tree_map_with_path(
-            lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            lambda p, s: _blank_leaf(p, s, device),
             self.paged_cache_specs(batch, t_max, n_pages, page_size))
         cache["page_table"] = torch.zeros((batch, t_max // page_size),
                                           dtype=torch.int32, device=device)
@@ -230,35 +299,86 @@ class TorchModel:
             return t0.to(device=device, dtype=torch.int64)[:, None] + ar
         return (t0 + ar)[None, :].expand(b, s)
 
+    def _plan_blocks(self, params, cache):
+        """(kind, block params, block cache or None) in layer order: each
+        group's blocks, then the epilogue."""
+        plan = self.plan
+        for g in range(plan.n_groups):
+            for j, kind in enumerate(plan.scan_kinds):
+                key = _group_key(plan, j)
+                yield kind, _layer(params["blocks"][key], g), (
+                    _layer(cache["blocks"][key], g) if cache is not None
+                    else None)
+        for i, kind in enumerate(plan.epilogue):
+            yield kind, params[f"epi_{i}"], (
+                cache[f"epi_{i}"] if cache is not None else None)
+
     def _run_blocks(self, params, x, *, positions, cache, t, live=None,
                     valid_len=None):
         """``valid_len`` (chunked prefill: a host int or a device scalar;
-        a verify's restore pass: (B,)) reaches the ssm mixer, for which
-        the tokens past it must be exact no-ops; a padded KV row needs
-        nothing (it stays causally invisible until the decode step at its
-        position overwrites it).  A cache that holds a ``"page_table"``
-        routes every layer's KV through it."""
+        a verify: (B,)) reaches the recurrent mixers, for which the tokens
+        past it must be exact no-ops, and the hybrid's ring, which takes
+        only real tokens and, given it, attends over the ring plus the
+        chunk; a padded KV row needs nothing (it stays causally invisible
+        until the decode step at its position overwrites it).  A cache
+        that holds a ``"page_table"`` routes every layer's KV through
+        it."""
         cfg = self.cfg
-        blocks = params["blocks"][cfg.family]
-        caches = cache["blocks"][cfg.family] if cache is not None else None
         page_table = cache.get("page_table") if cache is not None else None
-        for i in range(cfg.num_layers):
-            p = _layer(blocks, i)
-            c = _layer(caches, i) if caches is not None else None
+        for kind, p, c in self._plan_blocks(params, cache):
             xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
-            if cfg.family == "ssm":
+            if kind == "ssm":
                 x = x + ssm_mod.mamba2_block(
                     p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
                     live=live, use_kernel_hook=self.use_kernels)
                 continue
-            x = x + L.attention(p["attn"], xa, cfg=cfg, positions=positions,
-                                cache=c, cache_index=t, live=live,
-                                page_table=page_table,
-                                use_kernel_hook=self.use_kernels)
+            if kind == "rec":
+                x = x + rg_mod.recurrent_block(
+                    p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
+                    live=live)
+            elif kind == "attn_local":
+                x = x + self._windowed_attention(
+                    p["attn"], xa, positions=positions, cache=c, t=t,
+                    live=live, valid_len=valid_len)
+            else:
+                x = x + L.attention(p["attn"], xa, cfg=cfg,
+                                    positions=positions, cache=c,
+                                    cache_index=t, live=live,
+                                    page_table=page_table,
+                                    use_kernel_hook=self.use_kernels)
             xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
             x = x + L.apply_mlp(p["mlp"], xm, cfg.activation,
                                 use_kernel_hook=self.use_kernels)
         return x
+
+    def _windowed_attention(self, params, x, *, positions, cache, t,
+                            live=None, valid_len=None) -> torch.Tensor:
+        """The hybrid's local-attention layer over its ring (the
+        reference's ``_local_attention``): one token with a cache attends
+        the ring; a chunk with a cache and a ``valid_len`` attends the
+        ring plus its own real keys; otherwise (a monolithic prefill from
+        position 0) the chunk attends itself through ``flash_attention``
+        with the window, and the ring takes its last keys."""
+        cfg = self.cfg
+        window = cfg.rglru.window_size
+        s = x.shape[1]
+        q = torch.einsum("bsm,mhd->bshd", x, params["wq"].to(x.dtype))
+        k = torch.einsum("bsm,mkd->bskd", x, params["wk"].to(x.dtype))
+        v = torch.einsum("bsm,mkd->bskd", x, params["wv"].to(x.dtype))
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if cache is not None and s == 1:
+            y = rg_mod.ring_decode(q, cache, k, v, t, window, live=live)
+        elif cache is not None and valid_len is not None:
+            y = rg_mod.ring_chunk(q, cache, k, v, t, valid_len, window,
+                                  live=live)
+        else:
+            y = L.attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                         q_positions=positions, kv_valid_len=s,
+                         window=window, use_kernel_hook=self.use_kernels)
+            if cache is not None:
+                rg_mod.fill_ring(cache, k, v, window)
+        return torch.einsum("bshd,hdm->bsm", y, params["wo"].to(x.dtype))
 
     def _logits(self, params, x):
         x = L.apply_norm(params["final_norm"], x, self.cfg.norm_type)
@@ -281,10 +401,12 @@ class TorchModel:
         position ``t0``: ``inputs["tokens"]`` is (B, C) with only the
         first ``valid_len`` tokens real.  The padded tail writes KV rows
         that stay causally invisible until the decode step at their
-        position overwrites them, and leaves the conv and SSD state as of
-        the last real token, so chaining chunks equals one
-        :meth:`prefill` (for the ssm family up to the scan's fp32
-        summation order).
+        position overwrites them, leaves the conv, SSD and RG-LRU state
+        as of the last real token, and never enters the hybrid's ring, so
+        chaining chunks equals one :meth:`prefill` (for the recurrent
+        families up to the scans' fp32 summation order, and for the
+        hybrid's attention up to the kernel's rounding against the ring's
+        plain ops).
 
         ``t0`` and ``valid_len`` are host ints or device scalars (0-d or
         (B,) int tensors, as the reference traces them): with tensors
@@ -383,14 +505,20 @@ class TorchModel:
           invisible until the next quantum overwrites them.  A row that
           is not live writes nothing (dense) or the trash page (paged),
           where the reference writes every row.
-        * Recurrent leaves (the ssm family's conv and SSD state) cannot
-          keep the optimistic update.  Pass 1 does not write them (no row
-          is live for them), and a restore pass from that unchanged state
-          replays the chunk with per-row ``valid_len = n_emit``, writing
-          only rows that emit: padded tokens are exact no-ops (dt = 0),
-          so each row's state is the state after ``n_emit`` steps, and a
-          row at 0 keeps its state bit for bit.  Families without such
-          leaves skip the restore pass (decided here, not on the device).
+        * Recurrent leaves (conv, SSD and RG-LRU state, the hybrid's
+          ring) cannot keep the optimistic update.  Pass 1 does not write
+          them (no row is live for them), and a restore pass from that
+          unchanged state replays the chunk with per-row ``valid_len =
+          n_emit``, writing only rows that emit: padded tokens are exact
+          no-ops (dt = 0, log a = 0, no ring write), so each row's state
+          is the state after ``n_emit`` steps, and a row at 0 keeps its
+          state bit for bit.  Families without such leaves skip the
+          restore pass (decided here, not on the device).
+
+        Pass 1 runs with ``valid_len = d + 1`` for every row, as the
+        reference's does: the hybrid's attention then attends the ring
+        plus the chunk's own keys (a chunk with no ``valid_len`` would be
+        taken for a monolithic prefill from position 0).
 
         The cache is updated in place.  Returns ``(block (d+1, B),
         n_emit (B,), accepted (B,), cache, pos + n_emit)``; column ``i``
@@ -409,7 +537,7 @@ class TorchModel:
         live = (torch.zeros_like(n_left, dtype=torch.bool) if recurrent
                 else n_left > 0)
         x1 = self._run_blocks(params, x, positions=positions, cache=cache,
-                              t=pos, live=live)
+                              t=pos, live=live, valid_len=s)
         h = L.apply_norm(params["final_norm"], x1, cfg.norm_type)
         g = L.unembed(params["embed"], h, cfg).argmax(dim=-1)  # (B, d+1)
         match = (g[:, :d] == drafts.to(torch.int64)).to(torch.int64)

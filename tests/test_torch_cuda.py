@@ -826,3 +826,107 @@ def test_spec_engine_on_the_card_serves_the_plain_streams(cuda_device, arch):
         ulp2 = 2.0 ** (np.floor(np.log2(abs(top[0]))) - 6)
         assert top[0] - top[1] <= ulp2, (rid, t, top)
         assert min(lg[got[t]].item(), lg[want[t]].item()) >= top[0] - ulp2
+
+
+# ---------------------------------------------------------------------------
+# the hybrid (recurrentgemma-2b reduced: RG-LRU + a ring of window 32)
+# ---------------------------------------------------------------------------
+def _hybrid_engines(**kw):
+    """An eager and a graphed engine on the same reduced hybrid weights,
+    both warm (the monolithic prompt lengths warmed too)."""
+    cfg = get_reduced_config("recurrentgemma-2b")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    engines = [ServingEngine(cfg, params, batch_slots=2, max_len=64,
+                             cuda_graphs=graphs, **kw)
+               for graphs in (False, True)]
+    for eng in engines:
+        eng.warmup(prompt_lens=(3, 17, 39))
+    prompt = np.arange(1, 41, dtype=np.int32) * 7 % cfg.vocab_size
+    return cfg, engines, [prompt[:n] for n in (3, 39, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunked", [True, False])
+def test_hybrid_graphed_engine_serves_the_eager_streams(cuda_device,
+                                                        chunked):
+    """Eager and graphed hybrid engines: identical streams and launch
+    counts, nothing captured after warmup; ``block_matmul`` runs 3 times
+    per layer in every decode step and chunk, ``flash_attention`` only in
+    a monolithic prefill (once per attention layer: the 39-token prompt
+    wraps the 32-slot ring), the paged and SSD kernels never."""
+    cfg, engines, prompts = _hybrid_engines(chunked_prefill=chunked)
+    n_attn = cfg.num_layers // 3
+    results = []
+    for eng in engines:
+        vc = eng.version_cache
+        traces0, before = vc.traces, _launches()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        assert eng.admit_request(reqs[1], drain=True)
+        assert eng.admit_request(reqs[2], drain=True)
+        eng.run_to_completion([reqs[0]])
+        assert all(r.done and len(r.output) == 7 for r in reqs)
+        assert vc.traces == traces0
+        got = [a - b for a, b in zip(_launches(), before)]
+        chunks = eng.prefill_chunks
+        assert got[1] == (0 if chunked else 3 * n_attn), got
+        assert got[2:] == [0, 0], got
+        assert got[0] % (3 * cfg.num_layers) == 0, got
+        if chunked:
+            assert chunks > 3
+        results.append(([r.output for r in reqs], got))
+    assert results[0] == results[1]
+
+
+@pytest.mark.cuda
+def test_hybrid_monolithic_and_chunked_caches_agree(cuda_device):
+    """One 39-token prompt prefilled monolithically (``flash_attention``
+    under the window, then the ring filled) and in 16-token chunks (the
+    ring wraps): logits within LOGIT_TOL, ring positions equal."""
+    cfg = get_reduced_config("recurrentgemma-2b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(1),
+                        cuda_device)
+    prompt = torch.arange(1, 40, device=cuda_device) * 7 % cfg.vocab_size
+    mono = model.init_cache(1, 64, cuda_device)
+    want, _ = model.prefill(params, {"tokens": prompt[None]}, mono)
+    chunked = model.init_cache(1, 64, cuda_device)
+    for t0 in range(0, 39, 16):
+        toks = torch.zeros(16, dtype=torch.int64, device=cuda_device)
+        valid = min(16, 39 - t0)
+        toks[:valid] = prompt[t0:t0 + valid]
+        got, _ = model.prefill_chunk(params, {"tokens": toks[None]},
+                                     chunked, t0, valid)
+    torch.testing.assert_close(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    assert torch.equal(chunked["blocks"]["attn_local_2"]["pos"],
+                       mono["blocks"]["attn_local_2"]["pos"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, len(H100_LEVEL_TILES) - 1])
+def test_flash_attention_at_group_10_with_a_binding_window(cuda_device,
+                                                           level):
+    """recurrentgemma-2b's 10 query heads over one KV head at D 256 (10
+    flattened rows a query): a prefill longer than its window, and 16-row
+    chunks at per-row offsets under the window, against the plain
+    version."""
+    g = torch.Generator(device=cuda_device).manual_seed(10 + level)
+    tiles = H100_LEVEL_TILES[level]["attention"]
+    for b, s, t, offs, window in ((1, 300, 300, [0], 128),
+                                  (4, 16, 512, [68, 140, 260, 300], 100)):
+        q = torch.randn(b, s, 10, 256, generator=g,
+                        device=cuda_device).bfloat16()
+        kk = torch.randn(b, t, 1, 256, generator=g,
+                         device=cuda_device).bfloat16()
+        v = torch.randn(b, t, 1, 256, generator=g,
+                        device=cuda_device).bfloat16()
+        off = torch.tensor(offs, device=cuda_device)
+        kvl = off + s
+        got = fa.flash_attention(q, kk, v, offset=off, kv_valid_len=kvl,
+                                 window=window, **tiles)
+        want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl,
+                             window=window)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, fa.flash_attention(
+            q, kk, v, offset=off, kv_valid_len=kvl, window=window, **tiles))
