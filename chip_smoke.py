@@ -17,6 +17,8 @@ Phases, each fatal on failure:
      tile of the H100 level table: B1 at M = 1, 4, 16 over gemma-2b's and
      starcoder2-3b's MLP GEMMs, at M = 4, 16 and 20 over
      recurrentgemma-2b's (2560 -> 7680 -> 2560: uneven split-K ranges),
+     over deepseek-v2-lite-16b's dense MLP (2048 -> 10944 -> 2048: a
+     ragged last N tile, 171 K tiles) and shared experts (2048 <-> 2816),
      and a K that a cluster of 8 cannot split evenly, B2 with MQA and GQA
      at gemma-2b's heads and at starcoder2-3b's (24 over 2 KV heads, D
      128), decode rows at positions 0 and 511, 16-token chunks and a
@@ -34,8 +36,9 @@ Phases, each fatal on failure:
      kernel's; with ``--b2-reference TREE`` every B2 output also equal to
      that checkout's B2 build bit for bit; then ``ssd_scan``'s phase
      breakdown (clock stamps per phase) at 16 and 600 tokens;
-  3. serve gemma-2b: full width (18 layers, seeded random weights made on
-     the card) through ``ServingEngine(batch_slots=4, max_len=512)`` after
+  3. serve gemma-2b: full width (9 of its 18 layers: EARLY_LAYERS;
+     seeded random weights made on the card) through
+     ``ServingEngine(batch_slots=4, max_len=512)`` after
      ``warmup()``: six requests admitted with ``admit_request`` +
      ``prefill_step`` and decoded by 8-step quanta while the interference
      level cycles; the launch counters are zeroed just before and read
@@ -69,7 +72,7 @@ Phases, each fatal on failure:
   5. whole-model check: first-prefill-chunk and first-decode logits
      through the kernels and through the plain versions, same weights;
   6. serve (eager and graphed), sweep, pair, profile and check
-     mamba2-780m the same way (24 of its 48 layers: MAMBA2_EARLY_LAYERS,
+     mamba2-780m the same way (12 of its 48 layers: EARLY_LAYERS,
      d_inner 3072, 48 SSD heads): ``ssd_scan`` launches once per layer
      for every prefill chunk of two or more tokens; the profile covers
      one 16-token prefill chunk and one 8-step decode quantum; the
@@ -92,7 +95,8 @@ Phases, each fatal on failure:
      scheduler's pick clamped to one step by a full pool;
   8. times at the serve's shapes (B2 and B3 also at a verify pass's,
      five queries a row; B1 and B2 also at recurrentgemma-2b's: its MLP
-     at M = 4, 16 and 20, the 2100-token windowed prefill and 16-token
+     at M = 4, 16 and 20, B1 at deepseek-v2-lite-16b's four GEMMs at M =
+     4, 16 and 20, the 2100-token windowed prefill and 16-token
      chunks): kernel, plain version, one PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
@@ -129,7 +133,7 @@ Phases, each fatal on failure:
      engines (``speculative=True, spec_depth=SPEC_DEPTH``, warmed at the
      levels the serves cycle: captures and seconds reported) for
      gemma-2b dense, gemma-2b paged (against a plain paged engine built
-     here) and mamba2-780m at 24 layers serve two arms in 8-step quanta
+     here) and mamba2-780m at 12 layers serve two arms in 8-step quanta
      while the level cycles: repetitive (constant-token prompts of
      20-250 tokens on gemma-2b, echo prompts on mamba2-780m;
      SPEC_REP_NEW new tokens) and adversarial (the serve's random
@@ -139,9 +143,11 @@ Phases, each fatal on failure:
      plain logits (recomputed through a one-step decode) within
      SPEC_TIE_ULPS bf16 ulps: two on gemma-2b, eight on mamba2-780m,
      partings beyond two counted apart; verifies, accepted tokens and
-     rollbacks all above 0 per
-     configuration; exact launches (B1 54 and B2 18 per dense verify, B3
-     18 and B2 0 per paged verify, B4 2 x 24 per mamba2 verify, plus the
+     rollbacks all above 0 per configuration (where the two arms' n-gram
+     drafts never roll back or never hold, one more serve of the random
+     prompts drafts, every quantum, the token after each row's last); exact launches (B1 3 and B2 1 per layer and dense
+     verify, B3 1 and B2 0 per layer and paged verify, B4 2 per layer
+     and mamba2 verify, plus the
      plain quanta and prefill chunks); an eager speculative serve equal
      to the graphed one (streams, launches, ``spec_stats``); nothing
      captured after warmup; the paged pool empty after; a verify with a
@@ -150,22 +156,23 @@ Phases, each fatal on failure:
      pass leaving the state of ``n_emit`` plain steps (bit-equal to the
      state carried in where ``n_emit`` is 0).  Reported: one verify
      quantum under torch.profiler against a 1-step plain quantum;
- 11. the hybrid family: recurrentgemma-2b at full width and all 26
-     layers ((rec, rec, attn) x 8 + (rec, rec); the RG-LRU in plain ops,
+ 11. the hybrid family: recurrentgemma-2b at full width and 14 of its
+     26 layers (EARLY_LAYERS, for the script's time: (rec, rec, attn) x
+     4 + (rec, rec); the RG-LRU in plain ops,
      a ring of the last 2048 keys per attention layer), seeded weights
      made on the card, ``batch_slots=4``, ``max_len=512``, warmed at the
      levels 0/5/9 and K-buckets 1-8.  Fatal: the six prompts x MAX_NEW
      tokens served eagerly and with graphs give equal streams, nothing
-     captured after warmup, one host sync a quantum, B1 exactly 78
+     captured after warmup, one host sync a quantum, B1 exactly 42
      launches per decode step and chunk and B2, B3, B4 none; a
-     ``chunked_prefill=False`` serve (B2 8 times per monolithic prefill)
+     ``chunked_prefill=False`` serve (B2 4 times per monolithic prefill)
      equals the chunked streams or parts at a two-ulp tie; a
      RING_PROMPT-token prompt prefilled monolithically (B2's window
      binding) and in 16-token chunks (the ring wraps), then RING_STEPS
      decode steps: logits within RING_RTOL of the largest, tokens equal
      where clear, ring positions equal; the whole model through the
      kernels against the plain versions (monolithic prefill, decode
-     step, chunk); the restore pass (B1 156, B2 0 per verify; layer by
+     step, chunk); the restore pass (B1 84, B2 0 per verify; layer by
      layer h within STATE_RTOL, conv and ring within two bf16 ulps, ring
      positions equal, a row emitting nothing unchanged); a speculative
      engine on constant-token prompts (echo prompts too if those draft
@@ -173,7 +180,39 @@ Phases, each fatal on failure:
      ties, verifies, acceptances and rollbacks above 0.  Reported: a
      profiled 8-step quantum and 16-token chunk, warmup captures and
      seconds, the phase's seconds.  A failed check is reported and the
-     phase runs on; it fails at its end.
+     phase runs on; it fails at its end;
+ 12. the moe family: deepseek-v2-lite-16b at its published widths and all
+     27 layers (``pro_0`` a dense MLP of 10944, then 26 ``moe_ds`` blocks:
+     MLA with a 512 + 64 latent cache, 64 routed experts top-6 at capacity
+     factor 1.25, 2 shared experts as one MLP of 2816), seeded weights made
+     on the card after the earlier phases' engines are freed,
+     ``batch_slots=4``, ``max_len=512``.  Fatal: the six prompts x MAX_NEW
+     tokens served eagerly and with graphs (levels 0/5/9, K-buckets 1-8)
+     give equal streams (the same schedule routes the same groups),
+     nothing captured after warmup, one host sync a quantum, B1 exactly 81
+     launches a forward pass (``moe_launches``) and B2, B3, B4 none; an
+     eager monolithic serve (the first four prompts) and an eager paged
+     serve (prefix sharing, the pool checks of phase 7, B3 none) at one
+     level with exact launches, their streams against the chunked serve's
+     reported (capacity MoE depends on the routing groups); the whole
+     model through the kernels against the plain versions (chunk, step,
+     monolithic prefill) within LOGIT_RTOL, or, past it, a first router
+     decision that differs at a probability gap within ROUTER_TIE (every
+     flip and the routers' input drift reported); a speculative serve at
+     one level on constant-token prompts, every quantum a verify of the
+     last token's copies (random deepseek's stream does not repeat, so
+     n-gram drafts never come), with exact launches and at least one
+     verify (partings reported, not gated: a verify routes 20 tokens
+     together, a step 4).  Then the MoE-free clone (every layer
+     ``ds_dense0``, the same widths and depth, the first four prompts,
+     eager, one level) holds the MLA cache machinery strictly: paged
+     streams (the same requests) equal dense ones, monolithic and
+     speculative (every quantum a verify, rollbacks > 0) streams equal
+     them or part at two-ulp ties, and the whole clone through the
+     kernels is within LOGIT_RTOL of the plain versions.  Reported: a
+     profiled 8-step quantum and 16-token chunk, the routed experts' time
+     per step against their bounds, peak memory, the phase's seconds.
+     Failed checks are collected and the phase fails at its end.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -226,10 +265,16 @@ MAX_NEW = 32
 QUANTUM = 8
 BATCH_SLOTS = 4
 MAX_LEN = 512
-# phase 6 serves mamba2-780m at half depth (24 of its 48 layers, widths
-# unchanged) to keep the script well inside its time limit: its warmup
-# captures 121 graphs of every layer; phase 9 serves it at full depth
-MAMBA2_EARLY_LAYERS = 24
+# the single-engine paths' depth cuts, widths unchanged, to keep the
+# script well inside its time limit (each warmup captures 121 graphs of
+# every layer): phases 3-7 and 10 serve gemma-2b at 9 of its 18 layers,
+# phase 6 mamba2-780m at 12 of its 48, phase 11 recurrentgemma-2b at 14
+# of its 26 ((rec, rec, attn) x 4 + (rec, rec): the plan's groups and
+# its epilogue); phase 9 serves gemma-2b and mamba2-780m at full depth
+EARLY_LAYERS = {"gemma-2b": 9, "mamba2-780m": 12, "recurrentgemma-2b": 14}
+# deepseek-v2-lite-16b's B1 GEMMs (K, N): layer 0's dense MLP, then the
+# shared experts' MLP of every moe_ds layer
+MOE_GEMMS = ((2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048))
 
 
 class SmokeFailure(RuntimeError):
@@ -370,6 +415,13 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
                                    BATCH_SLOTS * (SPEC_DEPTH + 1))
                for k, n in ((2560, 7680), (7680, 2560))]
+    # deepseek-v2-lite-16b: layer 0's dense MLP (2048 -> 10944: 85.5 N
+    # tiles of 128, the last one ragged; 10944 -> 2048: 171 K tiles of 64,
+    # uneven split-K ranges) and the shared experts' (2048 <-> 2816 = 22
+    # tiles of 128) at a step's, a chunk's and a verify's M
+    shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
+                                   BATCH_SLOTS * (SPEC_DEPTH + 1))
+               for k, n in MOE_GEMMS]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -811,7 +863,8 @@ def check_ssd(dev, gen, report) -> float:
 
 
 def serve(cfg, params, prompts, dev, report, counters, expected, *,
-          engine_kw=None, after=None, warmup_kw=None) -> dict:
+          engine_kw=None, after=None, warmup_kw=None,
+          levels=(0, 5, 9)) -> dict:
     """Serve ``prompts`` x MAX_NEW tokens after ``warmup()``.  ``counters``
     maps each kernel of the path to its launch counter, zeroed just before
     the serve and read just after; ``expected(decode_steps, chunks)``
@@ -822,7 +875,8 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
     to its ``warmup()`` (default: the full level grid); ``after`` maps a
     request's index to the index of one that must be resident, its prompt
     prefilled, before it is admitted (admission stays FIFO: a held
-    request holds the ones behind it)."""
+    request holds the ones behind it).  The level cycles over the grid
+    points ``levels``, one a quantum."""
     import torch
     from repro_torch.core import cost_model as cm
     from repro_torch.serving.engine import Request, ServingEngine
@@ -856,7 +910,7 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
            "warmup (the graphs' pool and outputs)")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(prompts)]
-    levels = [cm.grid_point(i) for i in (0, 5, 9)]
+    levels = [cm.grid_point(i) for i in levels]
     syncs0, switches0 = engine.host_syncs, engine.level_switches
     builds0, tokens0 = engine.version_cache.traces, engine.tokens_decoded
     torch.cuda.reset_peak_memory_stats()
@@ -911,7 +965,7 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
             f"{finishing_prefills} finishing prefills")
     require(engine.version_cache.traces == builds0,
             "the serve built a version after warmup")
-    require(engine.level_switches - switches0 >= 3,
+    require(engine.level_switches - switches0 >= min(3, len(levels) - 1),
             f"{engine.level_switches - switches0} level switches")
     want, why = expected(decode_steps, chunks)
     for name, per_tile in launches.items():
@@ -1751,7 +1805,16 @@ def timings(dev, gen, report) -> list[dict]:
                              ("recurrentgemma-2b verify gate/up",
                               (verify_m, 2560, 7680)),
                              ("recurrentgemma-2b verify down",
-                              (verify_m, 7680, 2560))):
+                              (verify_m, 7680, 2560)),
+                             *((f"deepseek-v2-lite-16b {what} {gemm}",
+                                (m, k, n))
+                               for what, m in (("decode", BATCH_SLOTS),
+                                               ("prefill-chunk", 16),
+                                               ("verify", verify_m))
+                               for gemm, (k, n) in zip(
+                                   ("dense gate/up", "dense down",
+                                    "shared gate/up", "shared down"),
+                                   MOE_GEMMS))):
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(k, n, generator=gen, device=dev)
              * k ** -0.5).bfloat16()
@@ -1993,9 +2056,14 @@ def check_paged_serve(engine, out, report) -> None:
     require(stats["stalls"] == 0, f"paged serve stalled: {stats}")
     require(stats["used_pages"] == 0 and stats["committed"] == 0,
             f"paged serve left pages in use: {stats}")
-    leaves = engine.cache["blocks"]["dense"]
-    page_bytes = sum(a[:, 0].numel() * a.element_size()
-                     for a in leaves.values())      # one page, all layers
+    from repro_torch.models.model import cache_batch_axis
+    page_bytes = 0                                  # one page, all layers
+    for path in engine._paged_paths:
+        pool = engine.cache
+        for key in path:
+            pool = pool[key]
+        page_bytes += pool.select(cache_batch_axis(path), 0).numel() * \
+            pool.element_size()
     out["page_stats"] = stats
     out["cache_utilization"] = engine.cache_utilization
     out["pool_peak_bytes"] = stats["peak_used"] * page_bytes
@@ -2008,6 +2076,24 @@ def check_paged_serve(engine, out, report) -> None:
            f"{BATCH_SLOTS} x {MAX_LEN}")
 
 
+def sharing_prompts(prompts, vocab: int, seed: int):
+    """The paged serve's requests: ``prompts`` with two requests inserted
+    third and fourth that share the PAGED_BASE prompt's pages (one borrows
+    two full pages and adds 20 tokens, one borrows a page and a half, so
+    its first decode copies the shared page).  -> (requests' prompts,
+    each one's index in ``prompts`` or None)."""
+    import numpy as np
+    base = prompts[PAGED_BASE]
+    tail = np.random.default_rng(seed + 1).integers(0, vocab, 20)
+    sharers = [np.concatenate([base[:2 * PAGE_SIZE],
+                               tail.astype(np.int32)]),
+               base[:PAGE_SIZE + PAGE_SIZE // 2].copy()]
+    rest = [i for i in range(len(prompts)) if i != PAGED_BASE]
+    order = [PAGED_BASE, rest[0]] + [None, None] + rest[1:]
+    return ([prompts[i] if i is not None else sharers.pop(0)
+             for i in order], order)
+
+
 def serve_paged(cfg, params, prompts, dense_streams, dev, report,
                 seed, card) -> tuple[dict, dict]:
     """Serve the dense serve's prompts again on a paged engine
@@ -2017,20 +2103,11 @@ def serve_paged(cfg, params, prompts, dense_streams, dev, report,
     of the path; the pool's counters are checked after the serve; the
     streams of the dense serve's prompts are compared, not gated (the
     paged and dense kernels sum in different orders)."""
-    import numpy as np
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_paged as fap
 
-    base = prompts[PAGED_BASE]
-    tail = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, 20)
-    sharers = [np.concatenate([base[:2 * PAGE_SIZE],
-                               tail.astype(np.int32)]),
-               base[:PAGE_SIZE + PAGE_SIZE // 2].copy()]
-    rest = [i for i in range(len(prompts)) if i != PAGED_BASE]
-    order = [PAGED_BASE, rest[0]] + [None, None] + rest[1:]
-    paged_prompts = [prompts[i] if i is not None else sharers.pop(0)
-                     for i in order]
+    paged_prompts, order = sharing_prompts(prompts, cfg.vocab_size, seed)
     counters = {"block_matmul": bm.LAUNCHES, "flash_attention": fa.LAUNCHES,
                 "flash_attention_paged": fap.LAUNCHES}
     groups = {"block_matmul": "block_matmul_kernel",
@@ -3310,6 +3387,19 @@ class AlwaysDraft:
         return np.full(depth, int(history[-1]), np.int32)
 
 
+class RejectedDraft:
+    """A drafter that proposes d copies of the token after the row's last
+    one in the vocabulary: the model's own next token almost never, even
+    where its greedy stream repeats one token, so the verify rolls back."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def propose(self, history, depth):
+        import numpy as np
+        return np.full(depth, (int(history[-1]) + 1) % self.vocab, np.int32)
+
+
 def one_step_logits(model, params, tokens, dev):
     """Logits of the token after ``tokens``: the prefix through 16-token
     prefill chunks into a batch-1 row, then one decode step with the last
@@ -3377,9 +3467,10 @@ def spec_partings(what, cfg, params, prompts, got, want, dev, report, *,
 
 
 def spec_engine(cfg, params, dev, report, *, speculative=True, graphs=True,
-                **kw):
-    """A 4-slot engine at level 0, warmed (with graphs) at SPEC_LEVELS and
-    SPEC_BUCKETS: captures and their seconds are reported."""
+                levels=SPEC_LEVELS, **kw):
+    """A 4-slot engine at the first of ``levels``, warmed (with graphs) at
+    ``levels`` and SPEC_BUCKETS: captures and their seconds are
+    reported."""
     import torch
     from repro_torch.core import cost_model as cm
     from repro_torch.serving.engine import ServingEngine
@@ -3387,12 +3478,12 @@ def spec_engine(cfg, params, dev, report, *, speculative=True, graphs=True,
                         max_len=MAX_LEN, device=dev, cuda_graphs=graphs,
                         speculative=speculative, spec_depth=SPEC_DEPTH,
                         **kw)
-    eng.set_interference_level(cm.grid_point(0))
+    eng.set_interference_level(cm.grid_point(levels[0]))
     what = (f"{cfg.name}{' paged' if eng.paged else ''} "
             f"{'spec' if speculative else 'plain'}")
     if graphs:
         t0 = time.perf_counter()
-        eng.warmup(levels=[cm.grid_point(i) for i in SPEC_LEVELS],
+        eng.warmup(levels=[cm.grid_point(i) for i in levels],
                    quantum_buckets=SPEC_BUCKETS)
         torch.cuda.synchronize()
         calls = eng.version_cache._calls
@@ -3404,9 +3495,9 @@ def spec_engine(cfg, params, dev, report, *, speculative=True, graphs=True,
     return eng
 
 
-def spec_serve(engine, prompts, n_new, counters) -> dict:
+def spec_serve(engine, prompts, n_new, counters, levels=SPEC_LEVELS) -> dict:
     """Serve ``prompts`` x ``n_new`` tokens in 8-step quanta while the
-    level cycles over SPEC_LEVELS, from the first of them (the version
+    level cycles over ``levels``, from the first of them (the version
     that prefills the first prompts is the same in every serve); the
     launch counters are zeroed just before and read just after.  Counts
     the verify passes, the plain quanta's decode steps and the prefill
@@ -3418,7 +3509,7 @@ def spec_serve(engine, prompts, n_new, counters) -> dict:
     require(engine.active_slots == 0, "spec serve: the engine is not idle")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
             for i, p in enumerate(prompts)]
-    levels = [cm.grid_point(i) for i in SPEC_LEVELS]
+    levels = [cm.grid_point(i) for i in levels]
     engine.set_interference_level(levels[0])
     stats0 = dict(engine.spec_stats)
     syncs0, builds0 = engine.host_syncs, engine.version_cache.traces
@@ -3766,7 +3857,7 @@ def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
         engines["plain"] = (plain if kind != "paged" else spec_engine(
             cfg, params, dev, report, speculative=False, **kw))
         res = {"arms": {}}
-        first_spec = {}
+        first_spec, first_plain = {}, {}
         totals = collections.Counter()
         for arm, (arm_prompts, n_new) in arms.items():
             runs = {"plain": [], "spec": []}
@@ -3785,6 +3876,7 @@ def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
                             f"{which}: launches {r['launches']}, expected "
                             f"{want}")
             spec0 = first_spec[arm] = runs["spec"][0]
+            first_plain[arm] = runs["plain"][0]
             for key in ("spec_quanta", "tokens_accepted", "spec_rollbacks"):
                 totals[key] += spec0["spec_stats"][key]
             parted = spec_partings(
@@ -3819,9 +3911,40 @@ def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
                    f"({st['tokens_accepted']} of {st['tokens_drafted']}), "
                    f"{st['spec_rollbacks']} rollbacks; launches "
                    f"{spec0['launches']} (exact)")
-        require(all(totals[k] > 0 for k in ("spec_quanta", "tokens_accepted",
-                                            "spec_rollbacks")),
-                f"spec {what}: over both arms {dict(totals)}: the "
+        paths = ("spec_quanta", "tokens_accepted", "spec_rollbacks")
+        if not all(totals[k] > 0 for k in paths):
+            # the random model's n-gram drafts all held (or none came): one
+            # more serve of the adversarial prompts drafts, every quantum,
+            # tokens the model does not pick, as phase 11 serves echo
+            # prompts where constant ones draft nothing
+            arm_prompts, n_new = arms["adversarial"]
+            drafter, engines["spec"].drafter = (engines["spec"].drafter,
+                                                RejectedDraft(cfg.vocab_size))
+            r = spec_serve(engines["spec"], arm_prompts, n_new, counters)
+            engines["spec"].drafter = drafter
+            want = spec_expected(kind, cfg, r)
+            require(r["launches"] == want, f"spec {what} rejected drafts: "
+                    f"launches {r['launches']}, expected {want}")
+            for key in paths:
+                totals[key] += r["spec_stats"][key]
+            parted = spec_partings(
+                f"{what} rejected drafts", cfg, params, arm_prompts,
+                r["streams"], first_plain["adversarial"]["streams"], dev,
+                report)
+            st = r["spec_stats"]
+            res["arms"]["rejected drafts"] = {
+                "partings": len(parted), "parted": parted,
+                "spec_stats": st, "verifies": r["verifies"],
+                "launches": {"spec": r["launches"]}}
+            report(f"spec {what} rejected drafts ({len(arm_prompts)} "
+                   f"requests x {n_new + 1} tokens, one serve): "
+                   f"{st['spec_quanta']} "
+                   f"verifies, draft hit rate {st['draft_hit_rate']:.3f} "
+                   f"({st['tokens_accepted']} of {st['tokens_drafted']}), "
+                   f"{st['spec_rollbacks']} rollbacks; launches "
+                   f"{r['launches']} (exact)")
+        require(all(totals[k] > 0 for k in paths),
+                f"spec {what}: over the arms {dict(totals)}: the "
                 "acceptance and the rollback path must both run")
         # eager equals graphed, on the repetitive arm
         eager = spec_engine(cfg, params, dev, report, graphs=False, **kw)
@@ -3863,7 +3986,7 @@ def serve_spec(cfg, params, plain, prompts, dev, report, seed) -> dict:
 
 # ---------------------------------------------------------------------------
 # Phase 11: the hybrid family, recurrentgemma-2b (RG-LRU recurrence and a
-# ring of the last 2048 keys per attention layer) at full width and depth
+# ring of the last 2048 keys per attention layer) at full width
 HYBRID = "recurrentgemma-2b"
 HYBRID_WINDOW = 2048
 # the ring-wrap check's prompt: longer than the window, so B2's window
@@ -4043,11 +4166,11 @@ def hybrid_restore_check(cfg, params, dev, report) -> dict:
     random tokens, budgets 0, 1, 3 and d + 1 (drafts are the verify's own
     continuation, so each row emits its budget).
 
-    The model's verify: B1 launches 3 x 26 x 2 times (pass 1 and the
+    The model's verify: B1 launches 3 x layers x 2 times (pass 1 and the
     restore pass) and B2 none; the row that emits nothing keeps every
     leaf bit for bit.  Its state against plain decode steps is reported,
     not gated (the two paths' residual streams part by bf16 roundings,
-    which 26 layers carry on).
+    which the layers carry on).
 
     Layer by layer on the plain path's residual stream (both paths given
     the same input): pass 1 writes nothing; the restore pass against
@@ -4176,7 +4299,7 @@ def hybrid_spec(cfg, params, plain, prompts, dev, report, seed,
                 counters) -> dict:
     """A graphed speculative engine (depth SPEC_DEPTH) against the graphed
     plain engine ``plain`` on the repetitive arm (constant-token prompts,
-    SPEC_REP_NEW new tokens), one serve each: exact launches (B1 3 x 26
+    SPEC_REP_NEW new tokens), one serve each: exact launches (B1 3 x layers
     per plain step and chunk, twice that per verify; B2, B3, B4 none),
     streams equal or parting at two-ulp ties, verifies, acceptances and
     rollbacks all above 0.  When constant prompts draft nothing, echo
@@ -4252,7 +4375,8 @@ def serve_hybrid(dev, counters, report, seed) -> dict:
     from repro_torch.models.model import Model
 
     t_phase = time.perf_counter()
-    cfg = get_config(HYBRID)
+    cfg = dataclasses.replace(get_config(HYBRID),
+                              num_layers=EARLY_LAYERS[HYBRID])
     require(torch.backends.cuda.matmul.allow_tf32 is False,
             "TF32 is on: the RG-LRU gates' fp32 products must not use it")
     t0 = time.perf_counter()
@@ -4355,6 +4479,511 @@ def serve_hybrid(dev, counters, report, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the moe family, deepseek-v2-lite-16b (MLA latent cache, capacity
+# MoE with 64 routed and 2 shared experts, a dense first layer) at its
+# published widths and all 27 layers
+MOE = "deepseek-v2-lite-16b"
+# the whole-model check: where the kernels' and the plain path's logits
+# drift past LOGIT_RTOL, the drift is put down to a router decision only
+# if the first layer whose top-k choice differs has that token's k-th and
+# (k+1)-th probabilities (plain side) within ROUTER_TIE.  Set from the
+# readings: first flips at gaps of 7.5e-5 to 1.06e-3 over four runs (the
+# ulp-level drift of B1 against its plain version, carried through up to
+# four layers before a router flips), ten times the largest
+ROUTER_TIE = 1e-2
+
+
+def moe_launches(cfg, monolithic: int = 0):
+    """Every forward pass (a decode step, a prefill chunk, a monolithic
+    prefill, a verify) runs the three MLP GEMMs of each dense layer
+    (``ds_dense0``) and of each ``moe_ds`` block's shared experts through
+    B1: 81 a pass at deepseek-v2-lite-16b's 27 layers (and at its MoE-free
+    clone's).  MLA runs in plain ops (no B2; no B3 on a paged cache,
+    where the latents are gathered through the page table), the routed
+    experts in PyTorch products, and B4 never.  ``monolithic``: the
+    serve's monolithic admissions."""
+    dense = cfg.first_dense_layers
+    shared = (cfg.num_layers - dense) * bool(cfg.moe.num_shared_experts)
+    per = 3 * (dense + shared)
+
+    def expected(decode_steps, chunks, verifies=0):
+        passes = decode_steps + len(chunks) + monolithic + verifies
+        return ({"block_matmul": per * passes, "flash_attention": 0,
+                 "flash_attention_paged": 0, "ssd_scan": 0},
+                {"block_matmul": f"{per} per forward pass x {passes} "
+                 f"passes = {decode_steps} decode steps + {len(chunks)} "
+                 f"prefill chunks + {monolithic} monolithic prefills + "
+                 f"{verifies} verifies",
+                 "flash_attention": "MLA runs in plain ops",
+                 "flash_attention_paged": "paged MLA gathers its latents "
+                 "in plain ops",
+                 "ssd_scan": "no SSD layer"})
+    return expected
+
+
+def mla_only(cfg):
+    """The MoE-free clone of deepseek (the reference's ``_mla_only``):
+    every layer ``ds_dense0``, MLA and a dense MLP of d_ff 10944, at the
+    same widths and depth; no router can flip."""
+    return dataclasses.replace(cfg, name=cfg.name + "-mla-only",
+                               first_dense_layers=cfg.num_layers)
+
+
+def stream_partings(got, want) -> list:
+    """(request, first differing token) of each stream of ``got`` that
+    differs from ``want``'s."""
+    return [(rid, next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                       min(len(g), len(w))))
+            for rid, (g, w) in enumerate(zip(got, want)) if g != w]
+
+
+class RouterLog:
+    """Records every routing of ``repro_torch.models.moe`` (probabilities
+    and chosen experts per token) while it is active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.real, self.calls = moe_mod, moe_mod.route_tokens, []
+
+        def recording(params, xg, moe):
+            out = self.real(params, xg, moe)
+            self.calls.append((out[0].float(), out[1].argmax(-1),
+                               xg.float()))
+            return out
+        moe_mod.route_tokens = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_tokens = self.real
+
+
+def router_flips(kern: RouterLog, plain: RouterLog, k: int) -> list:
+    """Each (call, token) whose chosen expert set differs between the two
+    runs, in layer order, with the plain side's gap between its k-th and
+    (k+1)-th probabilities."""
+    import torch
+    flips = []
+    for layer, ((_, ki, _), (pp, pi, _)) in enumerate(zip(kern.calls,
+                                                          plain.calls)):
+        diff = (torch.sort(ki, -1).values != torch.sort(pi, -1).values)
+        for g, t in diff.any(-1).nonzero().tolist():
+            top = torch.sort(pp[g, t], descending=True).values
+            flips.append({"layer": layer, "token": t,
+                          "gap": (top[k - 1] - top[k]).item()})
+    return flips
+
+
+def whole_model_check_moe(cfg, params, prompt, dev, report) -> dict:
+    """Kernels against plain versions on the same weights: a 16-token
+    chunk of ``prompt``, a decode step after it, and a monolithic prefill
+    of all of ``prompt``.  Logits within LOGIT_RTOL of the largest; each
+    router decision that differs between the two paths is reported
+    (layer, token, the plain side's probability gap), and a drift past
+    the tolerance passes only if its first flip is within ROUTER_TIE."""
+    import torch
+    from repro_torch.models.model import Model
+
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    n = toks.shape[1]
+    rows = {m: m.init_cache(1, MAX_LEN, dev) for m in (kern, plain)}
+    lg, logs = {}, {}
+
+    def run(name, fn):
+        lg[name], logs[name] = {}, {}
+        for m in (kern, plain):
+            with RouterLog() as log:
+                lg[name][m] = fn(m)[0].float()
+            logs[name][m] = log
+    run("prefill chunk", lambda m: m.prefill_chunk(
+        params, {"tokens": toks[:, :16]}, rows[m], 0, 16))
+    nxt = lg["prefill chunk"][plain].argmax(dim=-1)
+    run("decode step", lambda m: m.decode_step(
+        params, {"tokens": nxt}, rows[m], torch.tensor([16], device=dev)))
+    fresh = {m: m.init_cache(1, MAX_LEN, dev) for m in (kern, plain)}
+    run("monolithic prefill", lambda m: m.prefill(params, {"tokens": toks},
+                                                  fresh[m]))
+    results = {}
+    for name, pair in lg.items():
+        diff = (pair[kern] - pair[plain]).abs().max().item()
+        scale = pair[plain].abs().max().item()
+        same_top = bool((pair[kern].argmax(-1)
+                         == pair[plain].argmax(-1)).all())
+        flips = router_flips(logs[name][kern], logs[name][plain],
+                             cfg.moe.top_k)
+        # the routers' inputs on the two paths, layer by layer, up to the
+        # first layer that flips: the kernels' own drift
+        upto = flips[0]["layer"] + 1 if flips else None
+        drift = [((a[2] - b[2]).abs().max()
+                  / b[2].abs().max().clamp_min(1e-30)).item()
+                 for a, b in zip(logs[name][kern].calls[:upto],
+                                 logs[name][plain].calls[:upto])]
+        results[name] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                         "same_argmax": same_top, "router_flips": flips,
+                         "router_input_drift": drift}
+        first = [(f["layer"], f["token"], round(f["gap"], 6))
+                 for f in flips[:8]]
+        report(f"whole model {cfg.name} {name}"
+               f"{f' ({n} tokens)' if 'monolithic' in name else ''}: max "
+               f"|kernels - plain| {diff:.4g} (max |logit| {scale:.4g}, "
+               f"tolerance {LOGIT_RTOL} x max |logit|), same argmax: "
+               f"{same_top}; {len(flips)} router decisions differ, the "
+               f"first (layer, token, probability gap): {first}; the "
+               f"routers' inputs up to the first flip differ by at most "
+               f"{max(drift, default=0.0):.4g} of their largest entry")
+        if diff > LOGIT_RTOL * scale:
+            require(bool(flips) and flips[0]["gap"] <= ROUTER_TIE,
+                    f"whole-model {cfg.name} {name} logits drift "
+                    f"{diff:.4g} without a router flip at a near tie "
+                    f"(first flip {flips[:1]})")
+    return results
+
+
+def moe_layer_times(cfg, params, dev, report) -> dict:
+    """One decode step's routed-expert layers alone: the 26 layers'
+    ``capacity_moe`` on 4 rows (one routing group of 4 tokens, capacity
+    1), CUDA-event timed over 20 runs after a warm one, against the bytes
+    the reference's formulation reads (every expert's three matrices, the
+    router) and the bytes the routed experts alone would read."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import _layer
+
+    moe = cfg.moe
+    x = torch.randn(BATCH_SLOTS, 1, cfg.d_model, device=dev).bfloat16()
+    n = cfg.num_layers - cfg.first_dense_layers
+    layers = [_layer(params["blocks"]["moe_ds"]["moe"], i) for i in range(n)]
+
+    def step():
+        for p in layers:
+            moe_mod.capacity_moe(p, x, cfg, moe)
+    step()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(20):
+        step()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / 20
+    per_expert = 3 * cfg.d_model * moe.expert_d_ff * 2
+    all_bytes = n * (moe.num_experts * per_expert
+                     + cfg.d_model * moe.num_experts * 4)
+    routed = min(moe.num_experts, BATCH_SLOTS * moe.top_k)
+    routed_bytes = n * (routed * per_expert
+                        + cfg.d_model * moe.num_experts * 4)
+    out = {"ms": ms, "bytes_all_experts": all_bytes,
+           "bound_ms_all_experts": all_bytes / HBM_BYTES_PER_S * 1e3,
+           "bytes_routed": routed_bytes,
+           "bound_ms_routed": routed_bytes / HBM_BYTES_PER_S * 1e3}
+    report(f"time {cfg.name} routed experts, one decode step ({n} layers, "
+           f"{BATCH_SLOTS} rows, capacity 1): {ms:.3f} ms (eager, CUDA "
+           f"events over 20 steps); bound {out['bound_ms_all_experts']:.3f}"
+           f" ms for the {all_bytes / 1e9:.2f} GB every expert's weights "
+           f"take (the reference's formulation), "
+           f"{out['bound_ms_routed']:.3f} ms for at most {routed} routed "
+           f"experts a layer ({routed_bytes / 1e9:.2f} GB)")
+    return out
+
+
+def serve_mla_clone(cfg, prompts, dev, report, counters, seed) -> dict:
+    """The MLA cache machinery held strictly on the MoE-free clone at
+    full width and depth (seeded weights made on the card, eager engines,
+    the first BATCH_SLOTS prompts):
+    paged streams (``page_size=PAGE_SIZE``, the same requests) equal the
+    dense chunked streams; monolithic streams, and a speculative serve's
+    (every quantum a verify of the last token's copies: rollbacks) equal
+    them or part at ties within SPEC_TIE_ULPS, phase 10's rule; exact
+    launches everywhere; the whole clone through the kernels against the
+    plain versions within LOGIT_RTOL (no router can flip)."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.models.model import Model
+
+    clone = mla_only(cfg)
+    prompts = prompts[:BATCH_SLOTS]
+    t0 = time.perf_counter()
+    params = Model(clone).init(torch.Generator(device=dev).manual_seed(seed),
+                               dev)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    report(f"{clone.name}: {clone.num_layers} layers ds_dense0 (MLA, dense "
+           f"MLP of {clone.first_dense_d_ff}), {n_params / 1e9:.3f} B "
+           f"parameters made on the card in {time.perf_counter() - t0:.1f} s")
+    # one level: every serve warms one version and runs the same tiles
+    one = (SPEC_LEVELS[0],)
+    warm = {"levels": [cm.grid_point(i) for i in one],
+            "quantum_buckets": SPEC_BUCKETS}
+    eager = {"cuda_graphs": False}
+    out = {}
+    _, dense = serve(clone, params, prompts, dev, report, counters,
+                     moe_launches(clone), engine_kw=eager, warmup_kw=warm,
+                     levels=one)
+    want = dense["streams"]
+    # the same requests on a paged engine: the same schedule and levels,
+    # so every row runs the same kernels on the same latents
+    eng, paged = serve(clone, params, prompts, dev, report, counters,
+                       moe_launches(clone),
+                       engine_kw={**eager, "page_size": PAGE_SIZE},
+                       warmup_kw=warm, levels=one)
+    stats = eng.page_stats
+    require(stats["stalls"] == 0 and stats["used_pages"] == 0
+            and stats["committed"] == 0,
+            f"{clone.name} paged: the pool after the serve {stats}")
+    paged["page_stats"] = stats
+    del eng
+    same = [a == b for a, b in zip(paged["streams"], want)]
+    require(all(same), f"{clone.name}: {sum(same)} of {len(same)} paged "
+            "streams equal the dense streams")
+    report(f"{clone.name} paged: {sum(same)} of {len(same)} streams equal "
+           f"the dense serve's (strict); pool {stats}")
+    _, mono = serve(clone, params, prompts, dev, report, counters,
+                    moe_launches(clone, monolithic=len(prompts)),
+                    engine_kw={**eager, "chunked_prefill": False},
+                    warmup_kw={**warm, "prompt_lens": PROMPT_LENS},
+                    levels=one)
+    out["monolithic_partings"] = spec_partings(
+        f"{clone.name} monolithic", clone, params, prompts,
+        mono["streams"], want, dev, report, label="mla clone",
+        other="the chunked serve's")
+    spec = spec_engine(clone, params, dev, report, graphs=False,
+                       levels=one)
+    spec.drafter = AlwaysDraft()
+    run = spec_serve(spec, prompts, MAX_NEW, counters, levels=one)
+    del spec
+    want_l, why = moe_launches(clone)(run["decode_steps"], run["chunks"],
+                                      run["verifies"])
+    require(run["launches"] == want_l, f"{clone.name} spec: launches "
+            f"{run['launches']}, expected {want_l} ({why['block_matmul']})")
+    st = run["spec_stats"]
+    require(run["verifies"] > 0 and st["spec_rollbacks"] > 0,
+            f"{clone.name} spec: {run['verifies']} verifies, "
+            f"{st['spec_rollbacks']} rollbacks")
+    out["spec_partings"] = spec_partings(
+        f"{clone.name} always-draft", clone, params, prompts,
+        run["streams"], want, dev, report, label="mla clone spec")
+    report(f"{clone.name} spec (every quantum a verify of the last token's "
+           f"copies): {run['verifies']} verifies, hit rate "
+           f"{st['draft_hit_rate']:.3f} ({st['tokens_accepted']} of "
+           f"{st['tokens_drafted']}), {st['spec_rollbacks']} rollbacks; "
+           f"launches {run['launches']} (exact)")
+    # no router: the kernels against the plain versions at LOGIT_RTOL,
+    # with no exception, through all 27 layers
+    report(f"{clone.name}: the whole model, kernels against plain versions")
+    out["whole_model"] = whole_model_check(clone, params, prompts[1], dev,
+                                           report)
+    out.update({"params": n_params, "dense": dense, "paged": paged,
+                "monolithic": mono, "spec": {k: v for k, v in run.items()
+                                             if k != "streams"}})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_moe(dev, counters, report, seed) -> dict:
+    """Phase 12 (see the module docstring).  Each check that fails is
+    reported and the phase goes on with the checks that do not depend on
+    it; the phase fails at its end if any did."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(a.numel() for a in _leaves(params))
+    moe, mla = cfg.moe, cfg.mla
+    report(f"{MOE}: {cfg.num_layers} layers (ds_dense0 + moe_ds x "
+           f"{cfg.num_layers - cfg.first_dense_layers}), d_model "
+           f"{cfg.d_model}, {cfg.num_heads} heads, MLA kv_lora_rank "
+           f"{mla.kv_lora_rank} qk_nope {mla.qk_nope_head_dim} qk_rope "
+           f"{mla.qk_rope_head_dim} v {mla.v_head_dim}, {moe.num_experts} "
+           f"experts of {moe.expert_d_ff} top-{moe.top_k} (capacity factor "
+           f"{moe.capacity_factor}) + shared {moe.shared_d_ff}, dense d_ff "
+           f"{cfg.first_dense_d_ff}, vocab {cfg.vocab_size}: "
+           f"{n_params / 1e9:.3f} B parameters made on the card in "
+           f"{time.perf_counter() - t0:.1f} s (peak device memory "
+           f"{init_peak / 2**30:.2f} GiB while they were made)")
+    rng = np.random.default_rng(seed + 12)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    warm = {"levels": [cm.grid_point(i) for i in SPEC_LEVELS],
+            "quantum_buckets": SPEC_BUCKETS}
+    # B1, then what runs outside the port's kernels: cuBLAS's bf16
+    # products (projections, the experts' batched products, the
+    # unembedding) and fp32 ones (MLA's scores and context, the router),
+    # PyTorch's elementwise, sort (top-k), concatenation, reduction and
+    # indexing kernels
+    groups = {"block_matmul": "block_matmul_kernel",
+              "cublas bf16": "nvjet", "cublas fp32": "gemmSN",
+              "cublas other": "gemm", "elementwise": "elementwise_kernel",
+              "sort": "ort", "softmax": "oftmax",
+              "cat": "CatArrayBatchedCopy", "reduce": "reduce_kernel",
+              "index": "ndex"}
+    out: dict = {"failures": [], "seconds": {}, "params": n_params,
+                 "init_peak_bytes": init_peak}
+
+    def attempt(name, fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        except SmokeFailure as e:
+            out["failures"].append(f"{name}: {e}")
+            report(f"moe {name} FAILED: {e}")
+            return None
+        finally:
+            out["seconds"][name] = time.perf_counter() - t
+
+    eager = attempt("eager serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, moe_launches(cfg),
+        engine_kw={"cuda_graphs": False}, warmup_kw=warm))
+    graphed = attempt("graphed serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, moe_launches(cfg),
+        warmup_kw=warm))
+    engine = graphed[0] if graphed else None
+    if graphed:
+        out["serve"] = graphed[1]
+    if eager and graphed:
+        out["eager"] = eager[1]
+        attempt("eager against graphed", lambda: same_streams(
+            MOE, graphed[1], eager[1], report))
+    del eager
+    # the eager monolithic and paged serves at one level: they check their
+    # paths' launches and the pool, not the level switch
+    one = (SPEC_LEVELS[0],)
+    warm_one = {"levels": [cm.grid_point(i) for i in one],
+                "quantum_buckets": SPEC_BUCKETS}
+    mono = attempt("monolithic serve", lambda: serve(
+        cfg, params, prompts[:BATCH_SLOTS], dev, report, counters,
+        moe_launches(cfg, monolithic=BATCH_SLOTS),
+        engine_kw={"cuda_graphs": False, "chunked_prefill": False},
+        warmup_kw={**warm_one, "prompt_lens": PROMPT_LENS[:BATCH_SLOTS]},
+        levels=one))
+    if mono:
+        out["monolithic"] = mono[1]
+        if graphed:
+            parted = stream_partings(mono[1]["streams"],
+                                     graphed[1]["streams"])
+            out["monolithic_partings"] = parted
+            report(f"{MOE} monolithic: {BATCH_SLOTS - len(parted)} of "
+                   f"{BATCH_SLOTS} streams equal the chunked serve's; "
+                   f"(request, token) of each parting {parted} (not gated: "
+                   "a monolithic prefill routes its prompt in one group, a "
+                   "chunk in groups of 16, so capacity drops differ)")
+    del mono
+    gc.collect()
+
+    def paged_serve():
+        paged_prompts, order = sharing_prompts(prompts, cfg.vocab_size, seed)
+        eng, res = serve(cfg, params, paged_prompts, dev, report, counters,
+                         moe_launches(cfg),
+                         engine_kw={"page_size": PAGE_SIZE,
+                                    "cuda_graphs": False},
+                         after={2: 0, 3: 0}, warmup_kw=warm_one, levels=one)
+        check_paged_serve(eng, res, report)
+        if graphed:
+            same = [res["streams"][j] == graphed[1]["streams"][i]
+                    for j, i in enumerate(order) if i is not None]
+            res["streams_equal_to_dense"] = sum(same)
+            report(f"{MOE} paged: {sum(same)} of {len(same)} streams equal "
+                   "the dense serve's (not gated: the sharers change the "
+                   "rows that route together)")
+        return res
+    out["paged"] = attempt("paged serve", paged_serve)
+    gc.collect()
+    out["whole_model"] = attempt("whole model", lambda: whole_model_check_moe(
+        cfg, params, prompts[1], dev, report))
+    out["moe_layers"] = attempt("routed experts timing", lambda:
+                                moe_layer_times(cfg, params, dev, report))
+    if engine is not None:
+
+        def spec_arm():
+            # random deepseek's greedy stream does not repeat: the n-gram
+            # drafter drafts nothing on constant-token or echo prompts, so
+            # the spec engine drafts d copies of each row's last token
+            # every quantum (AlwaysDraft): the verify, its acceptances and
+            # its rollbacks run on every quantum
+            rep = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
+                   for n in SPEC_REP_LENS]
+            spec = spec_engine(cfg, params, dev, report, levels=one)
+            spec.drafter = AlwaysDraft()
+            runs = {w: spec_serve(e, rep, MAX_NEW, counters, levels=one)
+                    for w, e in (("plain", engine), ("spec", spec))}
+            del spec
+            for w, r in runs.items():
+                want, why = moe_launches(cfg)(r["decode_steps"], r["chunks"],
+                                              r["verifies"])
+                require(r["launches"] == want, f"{MOE} spec {w}: launches "
+                        f"{r['launches']}, expected {want} "
+                        f"({why['block_matmul']})")
+            st = runs["spec"]["spec_stats"]
+            parted = stream_partings(runs["spec"]["streams"],
+                                     runs["plain"]["streams"])
+            ratio = (runs["spec"]["tokens_per_s"]
+                     / runs["plain"]["tokens_per_s"])
+            report(f"spec {MOE} ({len(rep)} constant prompts of "
+                   f"{list(SPEC_REP_LENS)} tokens x {MAX_NEW + 1} tokens, "
+                   f"level {one[0]}, every quantum a verify of the last "
+                   f"token's copies, one serve each): plain "
+                   f"{runs['plain']['wall_s']:.3f} s "
+                   f"({runs['plain']['tokens_per_s']:.1f} tokens/s), spec "
+                   f"{runs['spec']['wall_s']:.3f} s "
+                   f"({runs['spec']['tokens_per_s']:.1f} tokens/s, "
+                   f"{ratio:.3f}x); "
+                   f"{st['spec_quanta']} verifies and {st['spec_fallbacks']} "
+                   f"fallbacks, draft hit rate {st['draft_hit_rate']:.3f} "
+                   f"({st['tokens_accepted']} of {st['tokens_drafted']}), "
+                   f"{st['spec_rollbacks']} rollbacks; launches "
+                   f"{runs['spec']['launches']} (exact); {len(parted)} of "
+                   f"{len(rep)} streams part from the plain serve's at "
+                   f"(request, token) {parted} (not gated: a verify routes "
+                   "20-token groups, a step 4-token groups)")
+            require(st["spec_quanta"] > 0, f"{MOE} spec: no verify ran")
+            return {"partings": parted, "spec_stats": st,
+                    **{f"{w}_{k}": r[k] for w, r in runs.items()
+                       for k in ("wall_s", "tokens_per_s", "verifies",
+                                 "launches")}}
+        out["spec"] = attempt("spec", spec_arm)
+        # the profiles leave requests resident: last on this engine
+        out["profile_chunk"] = attempt("chunk profile", lambda:
+                                       profile_prefill_chunk(
+                                           engine, prompts[1], report,
+                                           groups))
+        out["profile_quantum"] = attempt("quantum profile", lambda:
+                                         profile_quantum(engine, prompts,
+                                                         report, groups))
+    del engine, graphed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["clone"] = attempt("mla clone", lambda: serve_mla_clone(
+        cfg, prompts, dev, report, counters, seed))
+    serves = [r["max_memory_allocated"] for r in (
+        out.get("serve"), out.get("eager"), out.get("monolithic"),
+        out.get("paged")) if r]
+    out["serve_peak_bytes"] = max(serves, default=None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"moe: phase 12 took {out['phase_s']:.1f} s ("
+           + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items())
+           + f"); peak device memory {init_peak / 2**30:.2f} GiB while the "
+           "weights were made, "
+           + ("not measured" if not serves else
+              f"{max(serves) / 2**30:.2f} GiB")
+           + " in the deepseek serves")
+    require(not out["failures"], "phase 12: " + "; ".join(out["failures"]))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4424,13 +5053,16 @@ def main() -> int:
     worst["ssd_scan"] = check_ssd(dev, gen, report)
     worst["flash_attention_paged"] = check_paged(dev, gen, report)
     ssd_phases = ssd_phase_breakdown(dev, gen, report)
+    # seconds by phase (phases 3-7 and 10 run inside each model's turn)
+    seconds = {"1 build": build_s,
+               "2 kernel checks": time.perf_counter() - t_script - build_s}
+    t_mark = time.perf_counter()
 
     rng = np.random.default_rng(args.seed)
     served, prof, model_check, host = {}, {}, {}, {}
     for name in ("gemma-2b", "mamba2-780m"):
-        cfg = get_config(name)
-        if cfg.ssm is not None:
-            cfg = dataclasses.replace(cfg, num_layers=MAMBA2_EARLY_LAYERS)
+        cfg = dataclasses.replace(get_config(name),
+                                  num_layers=EARLY_LAYERS[name])
         t0 = time.perf_counter()
         params = Model(cfg).init(torch.Generator(device=dev).manual_seed(
             args.seed), dev)
@@ -4495,13 +5127,21 @@ def main() -> int:
                 dev, report)
         del params
         torch.cuda.empty_cache()
+        seconds[f"3-7, 10 {name}"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
     times = (timings(dev, gen, report) + ssd_timings(dev, gen, report)
              + paged_timings(dev, gen, report))
+    seconds["8 timings"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
     cluster = serve_cluster(dev, {"block_matmul": bm.LAUNCHES,
                                   "flash_attention": fa.LAUNCHES,
                                   "ssd_scan": ssd.LAUNCHES},
                             report, args.seed, card)
+    seconds["9 cluster"] = time.perf_counter() - t_mark
     hybrid = serve_hybrid(dev, all_counters, report, args.seed)
+    seconds["11 hybrid"] = hybrid["phase_s"]
+    moe = serve_moe(dev, all_counters, report, args.seed)
+    seconds["12 moe"] = moe["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -4520,6 +5160,18 @@ def main() -> int:
     for arm in hybrid["spec"]["arms"].values():
         for side in arm["launches"].values():
             hybrid_launches_by.update(side)
+    # phase 12's serves: deepseek-v2-lite-16b graphed chunked, monolithic,
+    # paged and both sides of its speculative arm, then its MoE-free
+    # clone's dense, paged, monolithic and speculative serves
+    moe_launches_by = collections.Counter()
+    clone = moe["clone"]
+    for res in (moe["serve"], moe["monolithic"], moe["paged"],
+                clone["dense"], clone["paged"], clone["monolithic"]):
+        for name, per_tile in res["launches"].items():
+            moe_launches_by[name] += sum(per_tile.values())
+    for side in (moe["spec"]["plain_launches"], moe["spec"]["spec_launches"],
+                 clone["spec"]["launches"]):
+        moe_launches_by.update(side)
     kernels = []
     for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
@@ -4539,21 +5191,25 @@ def main() -> int:
             "cluster_launches": cluster["launches"].get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
             "hybrid_launches": hybrid_launches_by.get(name, 0),
+            "moe_launches": moe_launches_by.get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     spec_s = sum(served[n]["spec"]["phase_s"] for n in ("gemma-2b",
                                                         "mamba2-780m"))
     total_s = time.perf_counter() - t_script
-    report(f"chip_smoke: phase 10 took {spec_s:.1f} s, phase 11 "
-           f"{hybrid['phase_s']:.1f} s; the script {total_s:.1f} s from the "
-           "build on")
+    report(f"chip_smoke: seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" (phase 10 {spec_s:.1f} of them); the script {total_s:.1f} s "
+        "from the build on")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "ptxas": ptxas, "serve": served,
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
+        "moe": moe,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
+        "seconds": seconds,
         "lines": lines}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Architecture config registry of the PyTorch port.
 
-Holds the configs ported so far (the dense, ssm and hybrid families).
+Holds the configs ported so far (the dense, ssm, hybrid and moe
+families).
 ``get_config(name)`` returns the published config; ``get_reduced_config``
 applies the same reduction rules as ``repro.configs.get_reduced_config``
 (few layers, narrow widths, tiny vocab) for CPU tests; ``get_shape(name)``
@@ -15,13 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import gemma_2b, mamba2_780m, \
-    recurrentgemma_2b, starcoder2_3b
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.configs import deepseek_v2_lite_16b, gemma_2b, \
+    mamba2_780m, recurrentgemma_2b, starcoder2_3b
+from repro_torch.configs.base import SHAPES, MLAConfig, ModelConfig, \
+    MoEConfig, ShapeConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (gemma_2b, mamba2_780m, recurrentgemma_2b, starcoder2_3b)
+    for m in (deepseek_v2_lite_16b, gemma_2b, mamba2_780m,
+              recurrentgemma_2b, starcoder2_3b)
 }
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
@@ -45,9 +48,10 @@ get_shape = shape_config
 def get_reduced_config(name: str) -> ModelConfig:
     """Same-family tiny config: narrow dims, tiny vocab.  Attention
     widths shrink for the attention families only; an ssm config keeps
-    its zero head fields and shrinks its ``SSMConfig`` instead, and a
-    hybrid shrinks its ``RGLRUConfig`` to one (rec, rec, attn) group (the
-    reference registry's rules)."""
+    its zero head fields and shrinks its ``SSMConfig`` instead, a hybrid
+    shrinks its ``RGLRUConfig`` to one (rec, rec, attn) group, and an MoE
+    config keeps 4 experts (top-2) and narrow MLA widths (the reference
+    registry's rules)."""
     cfg = get_config(name)
     kw: dict = dict(
         name=cfg.name + "-reduced",
@@ -58,6 +62,16 @@ def get_reduced_config(name: str) -> ModelConfig:
     if cfg.family != "ssm":
         kw.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 1,
                   head_dim=32, d_ff=256)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+            expert_d_ff=64,
+            shared_d_ff=64 if cfg.moe.num_shared_experts else 0)
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, kv_lora_rank=32, qk_nope_head_dim=32,
+            qk_rope_head_dim=16, v_head_dim=32)
+        kw["head_dim"] = 32
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, d_inner=256, head_dim=32, state_dim=16, chunk_size=16)
@@ -65,10 +79,12 @@ def get_reduced_config(name: str) -> ModelConfig:
         kw["rglru"] = dataclasses.replace(
             cfg.rglru, lru_width=128, window_size=32, scan_chunk=16)
         kw["num_layers"] = 3   # one (rec, rec, attn) group
+    if cfg.first_dense_layers:
+        kw["first_dense_d_ff"] = 128
     if cfg.sliding_window:
         kw["sliding_window"] = 32
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_NAMES", "get_config",
-           "get_reduced_config", "get_shape"]
+__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "ShapeConfig", "SHAPES",
+           "ARCH_NAMES", "get_config", "get_reduced_config", "get_shape"]

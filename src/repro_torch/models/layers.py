@@ -108,6 +108,84 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softcap=softcap)
 
 
+def write_rows(cache: dict, new: dict, cache_index, *,
+               live: torch.Tensor | None = None,
+               page_table: torch.Tensor | None = None) -> None:
+    """Write each row's S new entries (``new[name]`` (B, S, ...)) into the
+    cache leaves ``cache[name]`` (dense rows (B, Tmax, ...) or, with
+    ``page_table``, page pools (n_pages + 1, page_size, ...)) from
+    ``cache_index`` on, in place.
+
+    ``cache_index`` is a host int (all rows aligned; checked on the host)
+    or a (B,) tensor.  ``live`` (B,) bool masks the per-row write: a dense
+    row that is not live keeps its entries bit-exact, a paged one writes
+    to the trash page.  A multi-token write with a live mask (a verify
+    pass) keeps every write inside the cache: a paged position past the
+    table goes to the trash page, and a dense position past the row (a
+    frozen row near the end of its slot; the reference's scatter drops
+    it) is not written."""
+    b, s = next(iter(new.values())).shape[:2]
+    first = cache[next(iter(new))]
+    if page_table is not None:
+        if not isinstance(cache_index, torch.Tensor):
+            raise ValueError("a paged cache takes (B,) positions (prefill "
+                             "fills dense rows)")
+        ps, n_slot = first.shape[1], page_table.shape[1]
+        rows = cache_index[:, None] + torch.arange(s, device=first.device)
+        slot = rows // ps
+        bidx = torch.arange(b, device=first.device)[:, None]
+        keep = live[:, None] if live is not None else None
+        if s > 1:
+            # a verify pass may run past the table: clamp the lookup and
+            # send the position to the trash page
+            keep = slot < n_slot if keep is None else keep & (slot < n_slot)
+            slot = slot.clamp(max=n_slot - 1)
+        phys = page_table[bidx, slot].long()
+        if keep is not None:
+            # a row that is not live writes to the trash page: its own
+            # pages stay bit-exact and no shared page is touched
+            phys = torch.where(keep, phys, TRASH_PAGE)
+        off = rows % ps
+        for name, val in new.items():
+            cache[name][phys, off] = val.to(cache[name].dtype)
+        return
+    if isinstance(cache_index, int):
+        # a host int is checked on the host; a tensor's rows are the
+        # caller's to keep inside the cache (reading them would sync)
+        if cache_index < 0 or cache_index + s > first.shape[1]:
+            raise ValueError(
+                f"cache write [{cache_index}, {cache_index + s}) "
+                f"outside the {first.shape[1]}-position cache")
+        for name, val in new.items():
+            cache[name][:, cache_index:cache_index + s] = \
+                val.to(cache[name].dtype)
+        return
+    rows = cache_index[:, None] + torch.arange(s, device=first.device)
+    bidx = torch.arange(b, device=first.device)[:, None]
+    vals = {name: val.to(cache[name].dtype) for name, val in new.items()}
+    keep = live[:, None] if live is not None else None
+    if s > 1 and live is not None:
+        # a verify pass (a multi-token write with a live mask; a prefill
+        # chunk's caller keeps its rows inside) may run past the row:
+        # clamp every index into it.  A clamped position writes what its
+        # row's last position gets (the same source token), so repeated
+        # indices agree; a row that starts past the end keeps its entries
+        t_max = first.shape[1]
+        clamped = rows.clamp(max=t_max - 1)
+        src = (clamped - cache_index[:, None]).clamp(min=0)
+        for name, val in vals.items():
+            idx = src.reshape(b, s, *(1,) * (val.ndim - 2))
+            vals[name] = val.gather(1, idx.expand_as(val))
+        keep = keep & (cache_index < t_max)[:, None]
+        rows = clamped
+    for name, val in vals.items():
+        leaf = cache[name]
+        if keep is not None:
+            mask = keep.reshape(*keep.shape, *(1,) * (val.ndim - 2))
+            val = torch.where(mask, val, leaf[bidx, rows])
+        leaf[bidx, rows] = val
+
+
 def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
               positions: torch.Tensor, cache: dict | None = None,
               cache_index: int | torch.Tensor | None = None,
@@ -148,28 +226,9 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                    kv_valid_len=s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
     elif page_table is not None:
-        if not isinstance(cache_index, torch.Tensor):
-            raise ValueError("a paged cache takes (B,) positions (prefill "
-                             "fills dense rows)")
+        write_rows(cache, {"k": k, "v": v}, cache_index, live=live,
+                   page_table=page_table)
         ck, cv = cache["k"], cache["v"]
-        ps, n_slot = ck.shape[1], page_table.shape[1]
-        rows = cache_index[:, None] + torch.arange(s, device=x.device)
-        slot = rows // ps
-        bidx = torch.arange(b, device=x.device)[:, None]
-        keep = live[:, None] if live is not None else None
-        if s > 1:
-            # a verify pass may run past the table: clamp the lookup and
-            # send the position to the trash page
-            keep = slot < n_slot if keep is None else keep & (slot < n_slot)
-            slot = slot.clamp(max=n_slot - 1)
-        phys = page_table[bidx, slot].long()
-        if keep is not None:
-            # a row that is not live writes to the trash page: its own
-            # pages stay bit-exact and no shared page is touched
-            phys = torch.where(keep, phys, TRASH_PAGE)
-        off = rows % ps
-        ck[phys, off] = k.to(ck.dtype)
-        cv[phys, off] = v.to(cv.dtype)
         kvl = cache_index + s
         if use_kernel_hook:
             y = dispatch.get_paged_attention()(
@@ -181,40 +240,8 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                                     kv_valid_len=kvl,
                                     window=cfg.sliding_window)
     else:
+        write_rows(cache, {"k": k, "v": v}, cache_index, live=live)
         ck, cv = cache["k"], cache["v"]
-        if isinstance(cache_index, int):
-            # a host int is checked on the host; a tensor's rows are the
-            # caller's to keep inside the cache (reading them would sync)
-            if cache_index < 0 or cache_index + s > ck.shape[1]:
-                raise ValueError(
-                    f"cache write [{cache_index}, {cache_index + s}) "
-                    f"outside the {ck.shape[1]}-position cache")
-            ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
-            cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
-        else:
-            rows = cache_index[:, None] + torch.arange(s, device=x.device)
-            bidx = torch.arange(b, device=x.device)[:, None]
-            nk, nv = k.to(ck.dtype), v.to(cv.dtype)
-            keep = live[:, None] if live is not None else None
-            if s > 1 and live is not None:
-                # a verify pass (a multi-token write with a live mask; a
-                # prefill chunk's caller keeps its rows inside) may run
-                # past the row: clamp every index into it.  A clamped
-                # position writes what its row's last position gets (the
-                # same source token), so repeated indices agree; a row
-                # that starts past the end keeps its entries
-                t_max = ck.shape[1]
-                clamped = rows.clamp(max=t_max - 1)
-                src = (clamped - cache_index[:, None]).clamp(min=0)
-                nk = nk.gather(1, src[..., None, None].expand_as(nk))
-                nv = nv.gather(1, src[..., None, None].expand_as(nv))
-                keep = keep & (cache_index < t_max)[:, None]
-                rows = clamped
-            if keep is not None:
-                nk = torch.where(keep[..., None, None], nk, ck[bidx, rows])
-                nv = torch.where(keep[..., None, None], nv, cv[bidx, rows])
-            ck[bidx, rows] = nk
-            cv[bidx, rows] = nv
         y = attend(q, ck, cv, q_positions=positions,
                    kv_valid_len=cache_index + s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)

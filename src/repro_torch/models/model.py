@@ -1,12 +1,14 @@
-"""Model assembly of the PyTorch port, dense, ssm and hybrid families
-(``repro.models.model``).
+"""Model assembly of the PyTorch port, dense, ssm, hybrid and moe
+families (``repro.models.model``).
 
 Parameters and caches keep the reference's layer plan and its stacked
 leading ``"layers"`` axis (``blocks/dense/...``, ``blocks/ssm/...``; the
 hybrid's ``blocks/rec_0``, ``blocks/rec_1``, ``blocks/attn_local_2``
-stacked over its groups, then the unstacked ``epi_0``, ``epi_1``), so
-their path strings and shapes line up with the JAX trees; the layers run
-as a Python loop over views of the stacked tensors.  Caches are updated
+stacked over its groups, then the unstacked ``epi_0``, ``epi_1``;
+deepseek's unstacked dense ``pro_0`` before the stacked
+``blocks/moe_ds``), so their path strings and shapes line up with the
+JAX trees; the layers run as a Python loop over views of the stacked
+tensors.  Caches are updated
 in place: the decode entry points return the cache they were given, and
 a fused decode quantum masks the cache write of every row past its step
 budget (KV rows, conv, SSD and RG-LRU state, ring slots) instead of
@@ -30,6 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params, \
@@ -51,7 +55,7 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
 
 
 # the families the port serves
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 @dataclasses.dataclass
@@ -72,11 +76,21 @@ def plan_layers(cfg: ModelConfig) -> LayerPlan:
     """The reference's ``make_plan`` for the families the port serves:
     dense and ssm stack ``cfg.num_layers`` blocks of the family's kind;
     the hybrid repeats its block pattern (``"rec"`` or ``"attn_local"``)
-    and unrolls the remainder after the groups."""
+    and unrolls the remainder after the groups; deepseek's moe unrolls its
+    first dense layers (``"ds_dense0"``: MLA and a dense MLP) before a
+    stack of ``"moe_ds"`` blocks (MLA, routed and shared experts)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the {FAMILIES} families only "
             f"(got {cfg.family!r})")
+    if cfg.family == "moe":
+        if cfg.moe.dense_residual:
+            raise NotImplementedError(
+                f"{cfg.name}: the dense-residual MoE block (moe_arctic) is "
+                "not ported yet (ROADMAP A11.3)")
+        n = cfg.first_dense_layers
+        return LayerPlan(("ds_dense0",) * n, ("moe_ds",),
+                         cfg.num_layers - n, ())
     if cfg.family == "hybrid":
         pat = tuple("rec" if p == "rec" else "attn_local"
                     for p in cfg.rglru.block_pattern)
@@ -104,6 +118,19 @@ def _kind_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind in ("dense", "attn_local"):
         return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
                 "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    if kind == "ds_dense0":
+        return {"ln1": L.norm_specs(cfg),
+                "attn": mla_mod.latent_attention_params(cfg, cfg.mla),
+                "ln2": L.norm_specs(cfg),
+                "mlp": L.mlp_specs(cfg, cfg.first_dense_d_ff)}
+    if kind == "moe_ds":
+        s = {"ln1": L.norm_specs(cfg),
+             "attn": mla_mod.latent_attention_params(cfg, cfg.mla),
+             "ln2": L.norm_specs(cfg),
+             "moe": moe_mod.expert_specs(cfg, cfg.moe)}
+        if cfg.moe.num_shared_experts:
+            s["shared"] = L.mlp_specs(cfg, cfg.moe.shared_d_ff)
+        return s
     raise ValueError(kind)
 
 
@@ -149,15 +176,18 @@ def _kind_cache_leaves(cfg: ModelConfig, kind: str, batch: int,
         return _rec_state_specs(cfg, batch)
     if kind == "attn_local":
         return rg_mod.ring_specs(cfg, batch)
+    if kind in ("ds_dense0", "moe_ds"):
+        return mla_mod.latent_leaves(cfg, batch, t_max)
     raise ValueError(kind)
 
 
 def _plan_tree(plan: LayerPlan, one) -> dict:
     """A tree in the reference's layout: ``one(kind)`` per block, the
-    scanned group stacked under ``blocks`` (keyed by kind, or ``kind_j``
-    when the group holds several), the epilogue as ``epi_i``.  (No family
-    the port serves has a prologue.)"""
-    out: dict = {}
+    prologue as ``pro_i``, the scanned group stacked under ``blocks``
+    (keyed by kind, or ``kind_j`` when the group holds several), the
+    epilogue as ``epi_i``."""
+    out: dict = {f"pro_{i}": one(kind)
+                 for i, kind in enumerate(plan.prologue)}
     if plan.n_groups:
         out["blocks"] = stack_specs(
             {_group_key(plan, j): one(k)
@@ -187,8 +217,9 @@ def _blank_leaf(path: tuple[str, ...], spec: ParamSpec, device):
 
 class TorchModel:
     """The dense decoder (``family == "dense"``), the attention-free
-    Mamba-2 stack (``family == "ssm"``) and the RG-LRU / local-attention
-    hybrid (``family == "hybrid"``)."""
+    Mamba-2 stack (``family == "ssm"``), the RG-LRU / local-attention
+    hybrid (``family == "hybrid"``) and deepseek's MLA with capacity MoE
+    (``family == "moe"``)."""
 
     def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
         if cfg.family not in FAMILIES:
@@ -226,9 +257,9 @@ class TorchModel:
     # -- paged caches ------------------------------------------------------
     def paged_leaf_paths(self) -> frozenset:
         """Paths of the cache leaves that page: those whose spec carries a
-        ``"seq"`` axis (attention k/v).  Recurrent state (conv, SSD and
-        RG-LRU leaves) is O(1) per slot and the hybrid's ring O(window):
-        they stay dense."""
+        ``"seq"`` axis (attention k/v, MLA latents).  Recurrent state
+        (conv, SSD and RG-LRU leaves) is O(1) per slot and the hybrid's
+        ring O(window): they stay dense."""
         return frozenset(path for path, spec in tree_leaves_with_path(
             self.cache_specs(1, 8)) if "seq" in spec.axes)
 
@@ -300,9 +331,12 @@ class TorchModel:
         return (t0 + ar)[None, :].expand(b, s)
 
     def _plan_blocks(self, params, cache):
-        """(kind, block params, block cache or None) in layer order: each
-        group's blocks, then the epilogue."""
+        """(kind, block params, block cache or None) in layer order: the
+        prologue, each group's blocks, then the epilogue."""
         plan = self.plan
+        for i, kind in enumerate(plan.prologue):
+            yield kind, params[f"pro_{i}"], (
+                cache[f"pro_{i}"] if cache is not None else None)
         for g in range(plan.n_groups):
             for j, kind in enumerate(plan.scan_kinds):
                 key = _group_key(plan, j)
@@ -340,6 +374,10 @@ class TorchModel:
                 x = x + self._windowed_attention(
                     p["attn"], xa, positions=positions, cache=c, t=t,
                     live=live, valid_len=valid_len)
+            elif kind in ("ds_dense0", "moe_ds"):
+                x = x + mla_mod.latent_attention(
+                    p["attn"], xa, cfg=cfg, positions=positions, cache=c,
+                    cache_index=t, live=live, page_table=page_table)
             else:
                 x = x + L.attention(p["attn"], xa, cfg=cfg,
                                     positions=positions, cache=c,
@@ -347,6 +385,16 @@ class TorchModel:
                                     page_table=page_table,
                                     use_kernel_hook=self.use_kernels)
             xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
+            if kind == "moe_ds":
+                # every row of the call routes, live or not: the routing
+                # group is the reference's; the aux loss is dropped, as
+                # the reference's serving drops it
+                out, _ = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                if "shared" in p:
+                    out = out + L.apply_mlp(p["shared"], xm, cfg.activation,
+                                            use_kernel_hook=self.use_kernels)
+                x = x + out
+                continue
             x = x + L.apply_mlp(p["mlp"], xm, cfg.activation,
                                 use_kernel_hook=self.use_kernels)
         return x

@@ -651,7 +651,9 @@ class TorchServingEngine:
 
     # A paged engine's cache leaves are all page pools (L, n_pages + 1,
     # page_size, ...) under the same paths as the dense row's
-    # (L, 1, max_len, ...) leaves, plus the page table.
+    # (L, 1, max_len, ...) leaves, plus the page table; a layer outside
+    # the stacked blocks (deepseek's ``pro_0``) has no leading L, so its
+    # pages are axis 0 (``cache_batch_axis``).
     def _scatter_row(self, row, wtab: np.ndarray) -> None:
         """Write a dense batch-1 row into the pools, page by page, at the
         physical pages of ``wtab`` (pages_per_slot,); logical pages that
@@ -663,10 +665,11 @@ class TorchServingEngine:
         src = self._to_device(js)
         dst = self._to_device(wtab[js].astype(np.int64))
         for path in self._paged_paths:
-            r = _leaf(row, path)
-            pages = r.reshape(r.shape[0], self.pages_per_slot,
-                              self.page_size, *r.shape[3:])
-            _leaf(self.cache, path)[:, dst] = pages[:, src]
+            r, ax = _leaf(row, path), cache_batch_axis(path)
+            pages = r.reshape(*r.shape[:ax], self.pages_per_slot,
+                              self.page_size, *r.shape[ax + 2:])
+            _leaf(self.cache, path).index_copy_(
+                ax, dst, pages.index_select(ax, src))
 
     def _gather_row(self, trow: np.ndarray):
         """A fresh dense batch-1 row holding the pages of ``trow``
@@ -677,7 +680,8 @@ class TorchServingEngine:
         attends to it)."""
         idx = self._to_device(trow.astype(np.int64))
         return tree_map_with_path(
-            lambda path, r: _leaf(self.cache, path)[:, idx].reshape(r.shape),
+            lambda path, r: _leaf(self.cache, path).index_select(
+                cache_batch_axis(path), idx).reshape(r.shape),
             self._empty_row)
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -686,8 +690,8 @@ class TorchServingEngine:
         pool), in place, on the stream ahead of the quantum that writes
         the page."""
         for path in self._paged_paths:
-            pool = _leaf(self.cache, path)
-            pool[:, dst].copy_(pool[:, src])
+            pool, ax = _leaf(self.cache, path), cache_batch_axis(path)
+            pool.select(ax, dst).copy_(pool.select(ax, src))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A small host array on the engine's device, copied without

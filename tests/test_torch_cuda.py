@@ -930,3 +930,97 @@ def test_flash_attention_at_group_10_with_a_binding_window(cuda_device,
                                    rtol=KERNEL_TOL, atol=KERNEL_TOL)
         assert torch.equal(got, fa.flash_attention(
             q, kk, v, offset=off, kv_valid_len=kvl, window=window, **tiles))
+
+
+# ---------------------------------------------------------------------------
+# the moe family (deepseek-v2-lite-16b: MLA latent cache, capacity MoE)
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b's B1 GEMMs (K, N): layer 0's dense MLP (N 10944:
+# the last tile of 128 ragged; K 10944: 171 tiles of 64, uneven split-K
+# ranges) and the shared experts' (2816 = 22 tiles of 128)
+MOE_GEMMS = ((2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(len(H100_LEVEL_TILES)))
+def test_block_matmul_at_deepseek_shapes(cuda_device, level):
+    """B1 at deepseek's four GEMMs at a decode step's, a chunk's and a
+    verify's M under each level's tile: against the plain version, and
+    bit for bit across two launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(30 + level)
+    tiles = H100_LEVEL_TILES[level]["matmul"]
+    for m in (4, 16, 20):
+        for k, n in MOE_GEMMS:
+            x = torch.randn(m, k, generator=g, device=cuda_device).bfloat16()
+            w = (torch.randn(k, n, generator=g, device=cuda_device)
+                 * k ** -0.5).bfloat16()
+            got = bm.block_matmul_2d(x, w, **tiles)
+            torch.testing.assert_close(got.float(),
+                                       matmul_ref(x, w).float(),
+                                       rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            assert torch.equal(got, bm.block_matmul_2d(x, w, **tiles))
+
+
+def _moe_engines(clone=False, **kw):
+    """Engines on reduced deepseek weights (or its MoE-free clone: every
+    layer MLA and a dense MLP), both warm: eager and graphed, or as
+    ``kw`` asks."""
+    cfg = get_reduced_config("deepseek-v2-lite-16b")
+    if clone:
+        cfg = dataclasses.replace(cfg, name=cfg.name + "-mla-only",
+                                  first_dense_layers=cfg.num_layers)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    variants = kw.pop("variants", ({"cuda_graphs": False},
+                                   {"cuda_graphs": True}))
+    engines = [ServingEngine(cfg, params, batch_slots=2, max_len=64,
+                             **kw, **v) for v in variants]
+    for eng in engines:
+        eng.warmup()
+    prompt = np.arange(1, 41, dtype=np.int32) * 7 % cfg.vocab_size
+    return cfg, engines, [prompt[:n] for n in (3, 39, 17)]
+
+
+def _serve_moe(eng, prompts):
+    vc = eng.version_cache
+    traces0, before = vc.traces, _launches()
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    assert eng.admit_request(reqs[1], drain=True)
+    assert eng.admit_request(reqs[2], drain=True)
+    eng.run_to_completion([reqs[0]])
+    assert all(r.done and len(r.output) == 7 for r in reqs)
+    assert vc.traces == traces0
+    return [r.output for r in reqs], [a - b for a, b in
+                                      zip(_launches(), before)]
+
+
+@pytest.mark.cuda
+def test_deepseek_graphed_engine_serves_the_eager_streams(cuda_device):
+    """Eager and graphed engines on reduced deepseek: identical streams
+    and launch counts, nothing captured after warmup; ``block_matmul``
+    runs 3 GEMMs for the dense layer and 3 for each block's shared experts
+    in every forward pass (9 here), the attention, paged and SSD kernels
+    never (MLA is plain ops)."""
+    cfg, engines, prompts = _moe_engines()
+    results = [_serve_moe(eng, prompts) for eng in engines]
+    for _, got in results:
+        assert got[0] > 0 and got[0] % (3 * cfg.num_layers) == 0, got
+        assert got[1:] == [0, 0, 0], got
+    assert results[0] == results[1]
+
+
+@pytest.mark.cuda
+def test_mla_clone_paged_engine_serves_the_dense_streams(cuda_device):
+    """On the MoE-free clone (no router to flip), a paged graphed engine
+    (pages of 8, the latents gathered through the table; the prompts share
+    a prefix, so it prefills fewer chunks) serves the dense graphed
+    engine's streams, with no attention-kernel launch."""
+    cfg, engines, prompts = _moe_engines(
+        clone=True, variants=({}, {"page_size": 8}))
+    (dense, dl), (paged, pl) = (_serve_moe(eng, prompts) for eng in engines)
+    assert paged == dense
+    for got in (dl, pl):
+        assert got[0] > 0 and got[0] % (3 * cfg.num_layers) == 0, got
+        assert got[1:] == [0, 0, 0], got
+    assert engines[1].page_stats["shared_hits"] > 0
+    assert engines[1].pool.used_pages == 0
