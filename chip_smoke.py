@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      recurrentgemma-2b's (2560 -> 7680 -> 2560: uneven split-K ranges),
      over deepseek-v2-lite-16b's dense MLP (2048 -> 10944 -> 2048: a
      ragged last N tile, 171 K tiles) and shared experts (2048 <-> 2816),
-     and a K that a cluster of 8 cannot split evenly, B2 with MQA and GQA
+     at M = 4, 16 and 20 over phase 13's GEMMs (arctic-480b's dense
+     residual 7168 <-> 4864, llama3-405b's 16384 <-> 53248, minicpm-2b's
+     2304 <-> 5760), and a K that a cluster of 8 cannot split evenly, B2
+     at phase 13's KV groups (7 and 16 at D 128, 1 at D 64: decode at
+     positions 0 and 511, 16-token chunks, a verify), B2 with MQA and GQA
      at gemma-2b's heads and at starcoder2-3b's (24 over 2 KV heads, D
      128), decode rows at positions 0 and 511, 16-token chunks and a
      speculative verify pass (B 4, S 5), at recurrentgemma-2b's (10 over
@@ -31,7 +35,8 @@ Phases, each fatal on failure:
      at page sizes 8, 16 and 32 over shuffled page tables at split 8, rows
      with no visible key, windowed and softcapped cases, gemma-2b's and
      starcoder2-3b's head shapes, verify passes of five queries a row (also
-     past a full slot), also against the dense kernel), plus
+     past a full slot), phase 13's three groups (llama3-405b's verify: 80
+     rows, two row tiles), also against the dense kernel), plus
      ragged shapes; every wrapper's shared-memory count held to the
      kernel's; with ``--b2-reference TREE`` every B2 output also equal to
      that checkout's B2 build bit for bit; then ``ssd_scan``'s phase
@@ -97,7 +102,9 @@ Phases, each fatal on failure:
      five queries a row; B1 and B2 also at recurrentgemma-2b's: its MLP
      at M = 4, 16 and 20, B1 at deepseek-v2-lite-16b's four GEMMs at M =
      4, 16 and 20, the 2100-token windowed prefill and 16-token
-     chunks): kernel, plain version, one PyTorch call
+     chunks; B1 at phase 13's GEMMs at M = 4, 16 and 20, B2 and B3 at its
+     KV groups, at the level-0 tile only): kernel, plain version, one
+     PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
      count of each launch (for B1 and B2 at each level), and B1 and its
@@ -181,15 +188,16 @@ Phases, each fatal on failure:
      profiled 8-step quantum and 16-token chunk, warmup captures and
      seconds, the phase's seconds.  A failed check is reported and the
      phase runs on; it fails at its end;
- 12. the moe family: deepseek-v2-lite-16b at its published widths and all
-     27 layers (``pro_0`` a dense MLP of 10944, then 26 ``moe_ds`` blocks:
+ 12. the moe family: deepseek-v2-lite-16b at its published widths and 9
+     of its 27 layers (EARLY_LAYERS, for the script's time since phase 13
+     came: ``pro_0`` a dense MLP of 10944, then 8 ``moe_ds`` blocks:
      MLA with a 512 + 64 latent cache, 64 routed experts top-6 at capacity
      factor 1.25, 2 shared experts as one MLP of 2816), seeded weights made
      on the card after the earlier phases' engines are freed,
      ``batch_slots=4``, ``max_len=512``.  Fatal: the six prompts x MAX_NEW
      tokens served eagerly and with graphs (levels 0/5/9, K-buckets 1-8)
      give equal streams (the same schedule routes the same groups),
-     nothing captured after warmup, one host sync a quantum, B1 exactly 81
+     nothing captured after warmup, one host sync a quantum, B1 exactly 27
      launches a forward pass (``moe_launches``) and B2, B3, B4 none; an
      eager monolithic serve (the first four prompts) and an eager paged
      serve (prefix sharing, the pool checks of phase 7, B3 none) at one
@@ -212,6 +220,33 @@ Phases, each fatal on failure:
      kernels is within LOGIT_RTOL of the plain versions.  Reported: a
      profiled 8-step quantum and 16-token chunk, the routed experts' time
      per step against their bounds, peak memory, the phase's seconds.
+     Failed checks are collected and the phase fails at its end;
+ 13. the remaining token configs, after phase 12's engines are freed,
+     one config's weights resident at a time, in the order arctic-480b (2
+     of its 35 layers: d_model 7168, 56 heads over 8 of 128, a dense
+     residual MLP of 4864 beside 128 experts of 4864, top-2, capacity
+     factor 1.25), llama3-405b (4 of 126: d_model 16384, 128 heads over 8
+     of 128, d_ff 53248, vocab 128256) and minicpm-2b (all 40: d_model
+     2304, 36 heads over 36 of 64, d_ff 5760, vocab 122753, tied), widths
+     published (LATE_LAYERS), seeded weights made on the card (arctic's
+     expert stacks slice by slice).  Each: the six prompts x MAX_NEW
+     tokens served eagerly and with graphs at LATE_LEVELS (K-buckets 1-8)
+     with equal streams, exact launches (``dense_launches``: B1 3 and B2 1
+     a layer per forward pass; B3, B4 none), one host sync a quantum,
+     nothing captured after warmup; a graphed paged serve at one level
+     (prefix sharing, phase 7's pool checks, ``paged_launches``); a
+     profiled graphed 8-step quantum; the
+     whole model through the kernels against the plain versions within
+     LOGIT_RTOL (arctic: or a first router flip within ROUTER_TIE, phase
+     12's rule).  arctic also: a speculative serve drafting the last
+     token's copies (streams reported, not gated: a verify routes 20
+     tokens together, a step 4) and the routed experts' time a step
+     against both bounds.  llama3 also: a
+     speculative serve on a paged engine (B3 verifies 80 rows: two row
+     tiles), streams equal to the plain paged engine's or parting at
+     two-ulp ties (phase 10's rule), verifies and rollbacks above 0
+     (drafting the last token's copies where n-gram drafts never roll
+     back).  Reported: peak memory per config, the phase's seconds.
      Failed checks are collected and the phase fails at its end.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -271,10 +306,26 @@ MAX_LEN = 512
 # phase 6 mamba2-780m at 12 of its 48, phase 11 recurrentgemma-2b at 14
 # of its 26 ((rec, rec, attn) x 4 + (rec, rec): the plan's groups and
 # its epilogue); phase 9 serves gemma-2b and mamba2-780m at full depth
-EARLY_LAYERS = {"gemma-2b": 9, "mamba2-780m": 12, "recurrentgemma-2b": 14}
+# phase 12 deepseek-v2-lite-16b at 9 of its 27 (pro_0 + 8 moe_ds)
+EARLY_LAYERS = {"gemma-2b": 9, "mamba2-780m": 12, "recurrentgemma-2b": 14,
+                "deepseek-v2-lite-16b": 9}
 # deepseek-v2-lite-16b's B1 GEMMs (K, N): layer 0's dense MLP, then the
 # shared experts' MLP of every moe_ds layer
 MOE_GEMMS = ((2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048))
+# phase 13's token configs, in the order they serve (one config's weights
+# resident at a time), at their published widths: arctic-480b at 2 of its
+# 35 layers (the most whose weights fit: 55.4 GB), llama3-405b at 4 of
+# 126 (33.9 GB), minicpm-2b at all 40 (5.45 GB)
+LATE_LAYERS = {"arctic-480b": 2, "llama3-405b": 4, "minicpm-2b": 40}
+# their B1 GEMMs (K, N): arctic's dense residual, llama3's and minicpm's
+# MLP, each gate/up then down
+LATE_GEMMS = {"arctic-480b": ((7168, 4864), (4864, 7168)),
+              "llama3-405b": ((16384, 53248), (53248, 16384)),
+              "minicpm-2b": ((2304, 5760), (5760, 2304))}
+# their attention (query heads, KV heads, head_dim): KV groups of 7, 16
+# and 1
+LATE_HEADS = {"arctic-480b": (56, 8, 128), "llama3-405b": (128, 8, 128),
+              "minicpm-2b": (36, 36, 64)}
 
 
 class SmokeFailure(RuntimeError):
@@ -422,6 +473,14 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
                                    BATCH_SLOTS * (SPEC_DEPTH + 1))
                for k, n in MOE_GEMMS]
+    # phase 13's GEMMs (arctic's dense residual 7168 <-> 4864: 112 and 76
+    # K tiles; llama3's 16384 <-> 53248: 416 N tiles of 128, 832 K tiles
+    # of 64, 1.745 GB a weight; minicpm's 2304 <-> 5760: 36 and 90 K
+    # tiles, uneven across a cluster of 8) at a step's, a chunk's and a
+    # verify's M
+    shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
+                                   BATCH_SLOTS * (SPEC_DEPTH + 1))
+               for gemms in LATE_GEMMS.values() for k, n in gemms]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -474,7 +533,20 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
         ("verify", 4, 5, 8, 1, 256, [68, 140, 260, 300],
          [73, 145, 265, 305]),
     ]
-    for name, b, s, h, kh, d, offs, kvls in cases:
+    plain_only = len(cases)
+    # phase 13's groups (arctic G 7 at D 128: a 64-row tile splits a
+    # query position's heads; llama3 G 16: a chunk is 256 rows, 4 tiles;
+    # minicpm G 1 at D 64 over 36 KV heads: one row a decode block):
+    # decode at positions 0 and 511, 16-token chunks and a verify
+    for arch, (h, kh, d) in LATE_HEADS.items():
+        cases += [
+            (f"{arch} decode", 4, 1, h, kh, d, [0, 100, 300, 511],
+             [1, 101, 301, 512]),
+            (f"{arch} prefill chunk", 1, 16, h, kh, d, [32], [48]),
+            (f"{arch} prefill chunk at 240", 1, 16, h, kh, d, [240], [256]),
+            (f"{arch} verify", 4, 5, h, kh, d, [68, 140, 260, 300],
+             [73, 145, 265, 305])]
+    for i, (name, b, s, h, kh, d, offs, kvls) in enumerate(cases):
         q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
         kk = torch.randn(b, MAX_LEN, kh, d, generator=gen,
                          device=dev).bfloat16()
@@ -482,11 +554,13 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                         device=dev).bfloat16()
         off = torch.tensor(offs, device=dev)
         kvl = torch.tensor(kvls, device=dev)
-        for window, softcap in ((None, None), (64, 50.0)):
+        # phase 13's configs have no window and no softcap
+        for window, softcap in ((None, None), (64, 50.0))[
+                :2 if i < plain_only else 1]:
             want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl,
                                  window=window, softcap=softcap)
             case_abs = case_rel = 0.0
-            used = set()
+            used, q_tiles = set(), set()
             for tiles in att_tiles:
                 kw = dict(offset=off, kv_valid_len=kvl, window=window,
                           softcap=softcap, **tiles)
@@ -499,8 +573,9 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                         f"flash_attention {name} tiles {tiles}: differs "
                         "from the reference build")
                 torch.cuda.synchronize()
-                _, split, blocks = fa.launch_geometry(b, s, h, kh, MAX_LEN,
-                                                      **tiles)
+                (tbq, _), split, blocks = fa.launch_geometry(
+                    b, s, h, kh, MAX_LEN, **tiles)
+                q_tiles.add(-(-s * (h // kh) // tbq))
                 used.add((split, blocks))
                 splits["flash_attention"][split] += 1
                 ea, er, ok = errors(got, want)
@@ -514,11 +589,12 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                         f"split {split}: two launches differ")
             worst["flash_attention"] = max(worst["flash_attention"],
                                            case_abs)
-            report(f"flash_attention {name} window={window} "
-                   f"softcap={softcap}: {len(att_tiles)} tiles ok, bitwise "
-                   f"equal across two launches, max abs err {case_abs:.4g}, "
-                   f"max rel err {case_rel:.4g} ({tol}); (split, blocks) "
-                   f"{sorted(used)}")
+            report(f"flash_attention {name} B={b} S={s} H={h} KV={kh} D={d} "
+                   f"window={window} softcap={softcap}: {len(att_tiles)} "
+                   f"tiles ok, bitwise equal across two launches, max abs "
+                   f"err {case_abs:.4g}, max rel err {case_rel:.4g} ({tol}); "
+                   f"(split, blocks) {sorted(used)}, row tiles "
+                   f"{sorted(q_tiles)}")
     # recurrentgemma-2b's heads (10 over one KV head at D 256: 10
     # flattened rows a query) under its 2048-token window: a monolithic
     # prefill longer than the window (the window binds), and 16-token
@@ -704,6 +780,12 @@ def check_paged(dev, gen, report) -> float:
     kvls["verify past the slot"] = [73, MAX_LEN + 3, 265, MAX_LEN + 4]
     cases += [(8, 1, 256, ps, 4, name, None, None, 5) for ps in (8, 16)
               for name in ("verify", "verify past the slot")]
+    # phase 13's groups (7, 16 and 1) on pages of 16: decode steps over
+    # ragged rows and verifies (llama3's 5 x 16 = 80 rows: two row tiles)
+    cases += [(h, kh, d, PAGE_SIZE, 4, name, None, None, sq)
+              for h, kh, d in LATE_HEADS.values()
+              for name, sq in (("ragged", 1), ("verify", 5),
+                               ("verify past the slot", 5))]
     worst = worst_dense = 0.0
     splits = collections.Counter()
     for h, kh, d, ps, b, name, window, softcap, sq in cases:
@@ -721,9 +803,10 @@ def check_paged(dev, gen, report) -> float:
         splits[split] += 1
         want = paged_attention_ref(q, kp, vp, table, **kw)
         ea, er, ok = errors(got, want)
+        rows = sq * (h // kh)
         label = (f"flash_attention_paged H={h} K={kh} D={d} page {ps} B={b} "
                  f"S={sq} {name} window={window} softcap={softcap} split "
-                 f"{split}")
+                 f"{split} row tiles {-(-rows // min(rows, fap.MAX_ROWS))}")
         require(ok and bool(torch.isfinite(got).all()),
                 f"{label}: max abs err {ea:.4g}, max rel err {er:.4g} "
                 f"beyond {tol}")
@@ -1814,14 +1897,25 @@ def timings(dev, gen, report) -> list[dict]:
                                for gemm, (k, n) in zip(
                                    ("dense gate/up", "dense down",
                                     "shared gate/up", "shared down"),
-                                   MOE_GEMMS))):
+                                   MOE_GEMMS)),
+                             *((f"{arch} {what} {gemm}", (m, k, n))
+                               for arch, gemms in LATE_GEMMS.items()
+                               for what, m in (("decode", BATCH_SLOTS),
+                                               ("prefill-chunk", 16),
+                                               ("verify", verify_m))
+                               for gemm, (k, n) in zip(("gate/up", "down"),
+                                                       gemms))):
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(k, n, generator=gen, device=dev)
              * k ** -0.5).bfloat16()
+        # phase 13's shapes at the level-0 tile only, for the script's
+        # time (each timing holds the stream for ~0.1 s first)
+        late = label.split()[0] in LATE_GEMMS
+        levels = H100_LEVEL_TILES[:1] if late else H100_LEVEL_TILES
         per_level = [cold_ms(lambda t=t: bm.block_matmul_2d(
-            x, w, **t["matmul"]), 20, flush) for t in H100_LEVEL_TILES]
+            x, w, **t["matmul"]), 20, flush) for t in levels]
         geometry = [bm.launch_geometry(m, k, n, **t["matmul"])[1:]
-                    for t in H100_LEVEL_TILES]
+                    for t in levels]
         nbytes = (m * k + k * n + m * n) * 2
         flops = 2 * m * k * n
         row = {"name": "block_matmul", "shape": label, "m": m, "k": k,
@@ -1830,10 +1924,11 @@ def timings(dev, gen, report) -> list[dict]:
                "split_blocks_per_level": geometry,
                "plain_ms": cold_ms(lambda: matmul_ref(x, w), 20, flush),
                "library_ms": cold_ms(lambda: torch.matmul(x, w), 20, flush),
-               "ms_l2_clean": cold_ms(lambda: bm.block_matmul_2d(
-                   x, w, **level0["matmul"]), 20, read_flush),
-               "library_ms_l2_clean": cold_ms(lambda: torch.matmul(x, w),
-                                              20, read_flush),
+               "ms_l2_clean": None if late else cold_ms(
+                   lambda: bm.block_matmul_2d(x, w, **level0["matmul"]), 20,
+                   read_flush),
+               "library_ms_l2_clean": None if late else cold_ms(
+                   lambda: torch.matmul(x, w), 20, read_flush),
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / BF16_FLOPS) * 1e3,
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -1844,43 +1939,65 @@ def timings(dev, gen, report) -> list[dict]:
                f"split {row['split']}, {row['blocks']} blocks), plain "
                f"{row['plain_ms']:.4f} ms, torch.matmul "
                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-               f"({row['bound_by']}); after a read-only L2 flush kernel "
-               f"{row['ms_l2_clean']:.4f}, torch.matmul "
-               f"{row['library_ms_l2_clean']:.4f} ms; per level ms "
-               + ", ".join(f"{v:.4f}" for v in per_level)
-               + "; per level (split, blocks) "
-               + ", ".join(f"{g}" for g in geometry))
+               f"({row['bound_by']})" + ("" if late else
+                                         f"; after a read-only L2 flush "
+                                         f"kernel {row['ms_l2_clean']:.4f}, "
+                                         f"torch.matmul "
+                                         f"{row['library_ms_l2_clean']:.4f} "
+                                         "ms; per level ms "
+                                         + ", ".join(f"{v:.4f}"
+                                                     for v in per_level)
+                                         + "; per level (split, blocks) "
+                                         + ", ".join(f"{g}"
+                                                     for g in geometry)))
     # flash_attention: decode over the serve's positions, a prefill chunk
-    # and a speculative verify pass (d + 1 = 5 queries per row); the bound
-    # counts the keys this data makes visible
-    for label, b, s, offs in (("decode", 4, 1, [68, 140, 260, 300]),
-                              ("prefill chunk", 1, 16, [240]),
-                              ("verify", 4, 5, [68, 140, 260, 300])):
-        h, t, d = 8, MAX_LEN, 256
+    # and a speculative verify pass (d + 1 = 5 queries per row), at
+    # gemma-2b's heads (8 over 1 at D 256) and at phase 13's (KV groups of
+    # 7, 16 and 1); the bound counts the keys this data makes visible.
+    # SDPA reads K/V expanded to every query head (a view for one KV
+    # head, a copy made before the timing for more)
+    shapes = [(label, b, s, offs, 8, 1, 256, "")
+              for label, b, s, offs in (("decode", 4, 1, [68, 140, 260, 300]),
+                                        ("prefill chunk", 1, 16, [240]),
+                                        ("verify", 4, 5, [68, 140, 260, 300]))]
+    shapes += [(f"{arch} {label}", b, s, offs, h, kh, d, arch)
+               for arch, (h, kh, d) in LATE_HEADS.items()
+               for label, b, s, offs in (
+                   ("decode", 4, 1, [68, 140, 260, 300]),
+                   ("prefill chunk", 1, 16, [240]),
+                   ("verify", 4, 5, [68, 140, 260, 300]))]
+    for label, b, s, offs, h, kh, d, arch in shapes:
+        t = MAX_LEN
         q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
-        kk = torch.randn(b, t, 1, d, generator=gen, device=dev).bfloat16()
-        v = torch.randn(b, t, 1, d, generator=gen, device=dev).bfloat16()
+        kk = torch.randn(b, t, kh, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, t, kh, d, generator=gen, device=dev).bfloat16()
         off = torch.tensor(offs, device=dev)
         kvl = off + s
+        # phase 13's heads at the level-0 tile only, as for B1
+        levels = H100_LEVEL_TILES[:1] if arch else H100_LEVEL_TILES
         per_level = [cold_ms(lambda a=tl["attention"]: fa.flash_attention(
             q, kk, v, offset=off, kv_valid_len=kvl, **a), 20, flush)
-            for tl in H100_LEVEL_TILES]
-        geometry = [fa.launch_geometry(b, s, h, 1, t, **tl["attention"])[1:]
-                    for tl in H100_LEVEL_TILES]
+            for tl in levels]
+        geometry = [fa.launch_geometry(b, s, h, kh, t,
+                                       **tl["attention"])[1:]
+                    for tl in levels]
         qpos = off[:, None] + torch.arange(s, device=dev)
         mask = (torch.arange(t, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]            # (B,1,S,T)
         qt = q.transpose(1, 2)
-        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) for a in (kk, v))
+        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) if kh == 1 else
+                  a.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+                  for a in (kk, v))
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        keys = sum(o + s for o in offs)               # visible keys, per head
-        nbytes = (2 * b * s * h * d + 2 * keys * d) * 2 + 2 * b * 4
+        keys = sum(o + s for o in offs)       # visible keys, per KV head
+        nbytes = (2 * b * s * h * d + 2 * keys * kh * d) * 2 + 2 * b * 4
         flops = 4 * h * d * sum(
             sum(o + i + 1 for i in range(s)) for o in offs)
-        row = {"name": "flash_attention", "shape": label, "b": b, "s": s,
-               "t": t, "offsets": offs, "ms": per_level[0],
+        row = {"name": "flash_attention", "shape": label, "arch": arch,
+               "b": b, "s": s, "t": t, "h": h, "kh": kh, "d": d,
+               "offsets": offs, "ms": per_level[0],
                "ms_per_level": per_level, "split": geometry[0][0],
                "blocks": geometry[0][1], "split_blocks_per_level": geometry,
                "plain_ms": cold_ms(lambda: attention_ref(
@@ -1891,8 +2008,9 @@ def timings(dev, gen, report) -> list[dict]:
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                             >= flops / BF16_FLOPS else "operations")}
         rows.append(row)
-        report(f"time flash_attention {label} B={b} S={s} T={t} "
-               f"offsets={offs}: kernel {row['ms']:.4f} ms (level 0 tiles "
+        report(f"time flash_attention {label} B={b} S={s} H={h} KV={kh} "
+               f"D={d} T={t} offsets={offs}: kernel {row['ms']:.4f} ms "
+               f"(level 0 tiles "
                f"{level0['attention']}, split {row['split']}, "
                f"{row['blocks']} blocks), plain {row['plain_ms']:.4f} ms, "
                f"sdpa {row['library_ms']:.4f} ms, bound "
@@ -1988,7 +2106,8 @@ def paged_timings(dev, gen, report) -> list[dict]:
     rows (the gather is not counted; no single PyTorch call reads through
     a page table).  Then the same at rows of one 64-key tile each, which
     separates the kernel's cost per tile from its fixed cost, and a
-    speculative verify pass (five queries per row)."""
+    speculative verify pass (five queries per row); then decode steps and
+    verifies at phase 13's heads (KV groups of 7, 16 and 1)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention_paged as fap
@@ -2000,10 +2119,18 @@ def paged_timings(dev, gen, report) -> list[dict]:
         scratch.zero_()
 
     rows = []
-    b, h, kh, d, t = 4, 8, 1, 256, MAX_LEN
-    for label, offs, s in (("decode", [68, 140, 260, 300], 1),
-                           ("decode, one tile per row", [63] * 4, 1),
-                           ("verify", [68, 140, 260, 300], 5)):
+    b, t = 4, MAX_LEN
+    shapes = [(label, offs, s, 8, 1, 256)
+              for label, offs, s in (("decode", [68, 140, 260, 300], 1),
+                                     ("decode, one tile per row", [63] * 4,
+                                      1),
+                                     ("verify", [68, 140, 260, 300], 5))]
+    # phase 13's groups: decode steps and verifies (llama3's 80 rows a
+    # verify: two row tiles)
+    shapes += [(f"{arch} {label}", [68, 140, 260, 300], s, h, kh, d)
+               for arch, (h, kh, d) in LATE_HEADS.items()
+               for label, s in (("decode", 1), ("verify", 5))]
+    for label, offs, s, h, kh, d in shapes:
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
         kvl = off + s
         q, kp, vp, table = paged_inputs(gen, dev, b, h, kh, d, PAGE_SIZE,
@@ -2014,7 +2141,9 @@ def paged_timings(dev, gen, report) -> list[dict]:
         mask = (torch.arange(t, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]            # (B,1,S,T)
         qt = q.transpose(1, 2)
-        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) for a in (kd, vd))
+        kt, vt = (a.transpose(1, 2).expand(b, h, t, d) if kh == 1 else
+                  a.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+                  for a in (kd, vd))
         bound_ms, bound_by, nbytes, flops = paged_bound(
             offs, PAGE_SIZE, h, kh, d, s)
         row = {"name": "flash_attention_paged", "shape": label, "b": b,
@@ -4482,7 +4611,8 @@ def serve_hybrid(dev, counters, report, seed) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 12: the moe family, deepseek-v2-lite-16b (MLA latent cache, capacity
 # MoE with 64 routed and 2 shared experts, a dense first layer) at its
-# published widths and all 27 layers
+# published widths and 9 of its 27 layers (EARLY_LAYERS: pro_0 and 8
+# moe_ds blocks)
 MOE = "deepseek-v2-lite-16b"
 # the whole-model check: where the kernels' and the plain path's logits
 # drift past LOGIT_RTOL, the drift is put down to a router decision only
@@ -4498,8 +4628,8 @@ def moe_launches(cfg, monolithic: int = 0):
     """Every forward pass (a decode step, a prefill chunk, a monolithic
     prefill, a verify) runs the three MLP GEMMs of each dense layer
     (``ds_dense0``) and of each ``moe_ds`` block's shared experts through
-    B1: 81 a pass at deepseek-v2-lite-16b's 27 layers (and at its MoE-free
-    clone's).  MLA runs in plain ops (no B2; no B3 on a paged cache,
+    B1: 27 a pass at deepseek-v2-lite-16b's 9 layers (81 at all 27; and
+    at its MoE-free clone's).  MLA runs in plain ops (no B2; no B3 on a paged cache,
     where the latents are gathered through the page table), the routed
     experts in PyTorch products, and B4 never.  ``monolithic``: the
     serve's monolithic admissions."""
@@ -4580,7 +4710,9 @@ def whole_model_check_moe(cfg, params, prompt, dev, report) -> dict:
     of all of ``prompt``.  Logits within LOGIT_RTOL of the largest; each
     router decision that differs between the two paths is reported
     (layer, token, the plain side's probability gap), and a drift past
-    the tolerance passes only if its first flip is within ROUTER_TIE."""
+    the tolerance passes only if its first flip is within ROUTER_TIE.  The
+    decode step reads the cache the chunk wrote on its own path, so its
+    first flip is the chunk's first, where the chunk has one."""
     import torch
     from repro_torch.models.model import Model
 
@@ -4605,6 +4737,7 @@ def whole_model_check_moe(cfg, params, prompt, dev, report) -> dict:
     run("monolithic prefill", lambda m: m.prefill(params, {"tokens": toks},
                                                   fresh[m]))
     results = {}
+    fed_by = {"decode step": "prefill chunk"}
     for name, pair in lg.items():
         diff = (pair[kern] - pair[plain]).abs().max().item()
         scale = pair[plain].abs().max().item()
@@ -4612,6 +4745,8 @@ def whole_model_check_moe(cfg, params, prompt, dev, report) -> dict:
                          == pair[plain].argmax(-1)).all())
         flips = router_flips(logs[name][kern], logs[name][plain],
                              cfg.moe.top_k)
+        # the run whose cache this one reads: its flips come first
+        upstream = results.get(fed_by.get(name), {}).get("router_flips", [])
         # the routers' inputs on the two paths, layer by layer, up to the
         # first layer that flips: the kernels' own drift
         upto = flips[0]["layer"] + 1 if flips else None
@@ -4632,28 +4767,37 @@ def whole_model_check_moe(cfg, params, prompt, dev, report) -> dict:
                f"first (layer, token, probability gap): {first}; the "
                f"routers' inputs up to the first flip differ by at most "
                f"{max(drift, default=0.0):.4g} of their largest entry")
+        first = (upstream or flips)[:1]
+        if upstream:
+            report(f"whole model {cfg.name} {name}: reads the "
+                   f"{fed_by[name]}'s cache, whose first router flip "
+                   f"(layer, token, gap) is ({first[0]['layer']}, "
+                   f"{first[0]['token']}, {first[0]['gap']:.6g})")
         if diff > LOGIT_RTOL * scale:
-            require(bool(flips) and flips[0]["gap"] <= ROUTER_TIE,
+            require(bool(first) and first[0]["gap"] <= ROUTER_TIE,
                     f"whole-model {cfg.name} {name} logits drift "
                     f"{diff:.4g} without a router flip at a near tie "
-                    f"(first flip {flips[:1]})")
+                    f"(first flip {first})")
     return results
 
 
 def moe_layer_times(cfg, params, dev, report) -> dict:
-    """One decode step's routed-expert layers alone: the 26 layers'
-    ``capacity_moe`` on 4 rows (one routing group of 4 tokens, capacity
-    1), CUDA-event timed over 20 runs after a warm one, against the bytes
-    the reference's formulation reads (every expert's three matrices, the
-    router) and the bytes the routed experts alone would read."""
+    """One decode step's routed-expert layers alone: every stacked MoE
+    block's ``capacity_moe`` on 4 rows (one routing group of 4 tokens,
+    capacity 1), CUDA-event timed over 20 runs after a warm one, against
+    the bytes the reference's formulation reads (every expert's three
+    matrices, the router) and the bytes the routed experts alone would
+    read."""
     import torch
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.model import _layer
+    from repro_torch.models.model import Model, _layer
 
     moe = cfg.moe
     x = torch.randn(BATCH_SLOTS, 1, cfg.d_model, device=dev).bfloat16()
-    n = cfg.num_layers - cfg.first_dense_layers
-    layers = [_layer(params["blocks"]["moe_ds"]["moe"], i) for i in range(n)]
+    plan = Model(cfg).plan
+    n = plan.n_groups
+    layers = [_layer(params["blocks"][plan.scan_kinds[0]]["moe"], i)
+              for i in range(n)]
 
     def step():
         for p in layers:
@@ -4769,7 +4913,7 @@ def serve_mla_clone(cfg, prompts, dev, report, counters, seed) -> dict:
            f"{st['tokens_drafted']}), {st['spec_rollbacks']} rollbacks; "
            f"launches {run['launches']} (exact)")
     # no router: the kernels against the plain versions at LOGIT_RTOL,
-    # with no exception, through all 27 layers
+    # with no exception, through all of the clone's layers
     report(f"{clone.name}: the whole model, kernels against plain versions")
     out["whole_model"] = whole_model_check(clone, params, prompts[1], dev,
                                            report)
@@ -4796,7 +4940,7 @@ def serve_moe(dev, counters, report, seed) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(MOE)
+    cfg = dataclasses.replace(get_config(MOE), num_layers=EARLY_LAYERS[MOE])
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
                              dev)
@@ -4984,6 +5128,286 @@ def serve_moe(dev, counters, report, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the remaining token configs (arctic-480b's dense-residual MoE,
+# llama3-405b, minicpm-2b) at their published widths
+LATE_ARCHS = ("arctic-480b", "llama3-405b", "minicpm-2b")
+# the levels phase 13's serves cycle (0/9, two versions: at 0/5/9 the
+# script ran past the 1,080 s it aims at, minicpm-2b's 40 layers paying
+# for each version in capture and eager warmup) and the one level of its
+# single-version serves
+LATE_LEVELS = (0, 9)
+LATE_ONE = (0,)
+
+
+def late_launches(cfg, paged: bool = False):
+    """``dense_launches`` (or ``paged_launches``) as they are, with the
+    kernels the path never runs expected at 0: B3 on a dense cache, B4
+    (no SSD layer) always."""
+    base = (paged_launches if paged else dense_launches)(cfg)
+
+    def expected(decode_steps, chunks):
+        want, why = base(decode_steps, chunks)
+        want, why = dict(want), dict(why)
+        for name, reason in (("flash_attention_paged", "a dense cache"),
+                             ("ssd_scan", "no SSD layer")):
+            want.setdefault(name, 0)
+            why.setdefault(name, reason)
+        return want, why
+    return expected
+
+
+def late_spec_launches(kind: str, cfg, run) -> dict:
+    """``spec_expected`` with the kernels it leaves out at 0."""
+    want = spec_expected(kind, cfg, run)
+    return {name: want.get(name, 0) for name in
+            ("block_matmul", "flash_attention", "flash_attention_paged",
+             "ssd_scan")}
+
+
+def late_spec_paged(cfg, params, dev, report, counters, seed) -> dict:
+    """llama3-405b's speculative serve on a paged engine: constant-token
+    prompts (SPEC_REP_LENS) on a plain and a speculative paged engine,
+    graphed at one level; where the n-gram drafts never roll back, the
+    speculative engine drafts the last token's copies and serves again.
+    Streams equal the plain engine's or part at two-ulp ties; verifies
+    and rollbacks above 0; exact launches (B3 once a layer a verify: 80
+    rows, two row tiles); the pool empty after."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    rep = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
+           for n in SPEC_REP_LENS]
+    paged = {"page_size": PAGE_SIZE}
+    plain = spec_engine(cfg, params, dev, report, speculative=False,
+                        levels=LATE_ONE, **paged)
+    want = spec_serve(plain, rep, MAX_NEW, counters, levels=LATE_ONE)
+    del plain
+    spec = spec_engine(cfg, params, dev, report, levels=LATE_ONE, **paged)
+    run = spec_serve(spec, rep, MAX_NEW, counters, levels=LATE_ONE)
+    drafter = "n-gram"
+    if run["verifies"] == 0 or run["spec_stats"]["spec_rollbacks"] == 0:
+        report(f"spec {cfg.name} paged: n-gram drafts gave {run['verifies']}"
+               f" verifies, {run['spec_stats']['spec_rollbacks']} rollbacks;"
+               " serving again with drafts of the last token's copies")
+        spec.drafter, drafter = AlwaysDraft(), "last token's copies"
+        run = spec_serve(spec, rep, MAX_NEW, counters, levels=LATE_ONE)
+    stats = spec.page_stats
+    del spec
+    for what, r in (("plain", want), ("spec", run)):
+        expected = late_spec_launches("paged", cfg, r)
+        require(r["launches"] == expected, f"{cfg.name} paged {what}: "
+                f"launches {r['launches']}, expected {expected}")
+    require(stats["used_pages"] == 0 and stats["committed"] == 0,
+            f"{cfg.name} paged spec: the pool after the serve {stats}")
+    st = run["spec_stats"]
+    require(run["verifies"] > 0 and st["spec_rollbacks"] > 0,
+            f"{cfg.name} paged spec: {run['verifies']} verifies, "
+            f"{st['spec_rollbacks']} rollbacks")
+    parted = spec_partings(f"{cfg.name} paged", cfg, params, rep,
+                           run["streams"], want["streams"], dev, report)
+    report(f"spec {cfg.name} paged ({len(rep)} constant prompts, drafts: "
+           f"{drafter}, level {LATE_ONE[0]}): plain {want['wall_s']:.3f} s "
+           f"({want['tokens_per_s']:.1f} tokens/s), spec {run['wall_s']:.3f}"
+           f" s ({run['tokens_per_s']:.1f} tokens/s, "
+           f"{run['tokens_per_s'] / want['tokens_per_s']:.3f}x); "
+           f"{run['verifies']} verifies, hit rate {st['draft_hit_rate']:.3f}"
+           f" ({st['tokens_accepted']} of {st['tokens_drafted']}), "
+           f"{st['spec_rollbacks']} rollbacks; launches {run['launches']} "
+           "(exact)")
+    return {"drafter": drafter, "partings": parted, "spec_stats": st,
+            "page_stats": stats,
+            **{f"{w}_{k}": r[k] for w, r in (("plain", want), ("spec", run))
+               for k in ("wall_s", "tokens_per_s", "verifies", "launches")}}
+
+
+def late_spec_moe(cfg, params, engine, dev, report, counters, seed) -> dict:
+    """arctic-480b's speculative serve (graphed, one level): every quantum
+    a verify of the last token's copies against the graphed plain
+    engine; exact launches and at least one verify; partings reported,
+    not gated (a verify routes 20 tokens together, a step 4)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    rep = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
+           for n in SPEC_REP_LENS]
+    spec = spec_engine(cfg, params, dev, report, levels=LATE_ONE)
+    spec.drafter = AlwaysDraft()
+    runs = {w: spec_serve(e, rep, MAX_NEW, counters, levels=LATE_ONE)
+            for w, e in (("plain", engine), ("spec", spec))}
+    del spec
+    for w, r in runs.items():
+        expected = late_spec_launches("dense", cfg, r)
+        require(r["launches"] == expected, f"{cfg.name} spec {w}: launches "
+                f"{r['launches']}, expected {expected}")
+    st = runs["spec"]["spec_stats"]
+    require(st["spec_quanta"] > 0, f"{cfg.name} spec: no verify ran")
+    parted = stream_partings(runs["spec"]["streams"],
+                             runs["plain"]["streams"])
+    report(f"spec {cfg.name} ({len(rep)} constant prompts x "
+           f"{MAX_NEW + 1} tokens, level {LATE_ONE[0]}, every quantum a "
+           f"verify of the last token's copies): plain "
+           f"{runs['plain']['wall_s']:.3f} s, spec "
+           f"{runs['spec']['wall_s']:.3f} s "
+           f"({runs['spec']['tokens_per_s'] / runs['plain']['tokens_per_s']:.3f}x"
+           f" plain tokens/s); {st['spec_quanta']} verifies, hit rate "
+           f"{st['draft_hit_rate']:.3f}, {st['spec_rollbacks']} rollbacks; "
+           f"launches {runs['spec']['launches']} (exact); {len(parted)} of "
+           f"{len(rep)} streams part from the plain serve's at (request, "
+           f"token) {parted} (not gated: a verify routes 20-token groups, "
+           "a step 4-token groups)")
+    return {"partings": parted, "spec_stats": st,
+            **{f"{w}_{k}": r[k] for w, r in runs.items()
+               for k in ("wall_s", "tokens_per_s", "verifies", "launches")}}
+
+
+def serve_late_config(arch, dev, counters, report, seed) -> dict:
+    """One config of phase 13 (see the module docstring).  Each check that
+    fails is reported and the config goes on with the checks that do not
+    depend on it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.models.model import Model
+
+    t_arch = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=LATE_LAYERS[arch])
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(a.numel() for a in _leaves(params))
+    h, kh, d = LATE_HEADS[arch]
+    widths = (f"a dense residual MLP of {cfg.d_ff} beside "
+              f"{cfg.moe.num_experts} experts of {cfg.moe.expert_d_ff}, "
+              f"top-{cfg.moe.top_k} (capacity factor "
+              f"{cfg.moe.capacity_factor})" if cfg.moe else
+              f"d_ff {cfg.d_ff}")
+    report(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+           f"layers, d_model {cfg.d_model}, {h} heads over {kh} KV heads of "
+           f"{d} (G {h // kh}), {widths}, vocab {cfg.vocab_size}"
+           f"{', tied' if cfg.tie_embeddings else ''}: {n_params / 1e9:.3f} "
+           f"B parameters ({n_params * 2 / 1e9:.2f} GB) made on the card in "
+           f"{time.perf_counter() - t0:.1f} s (peak device memory "
+           f"{init_peak / 2**30:.2f} GiB while they were made)")
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    warm = {"levels": [cm.grid_point(i) for i in LATE_LEVELS],
+            "quantum_buckets": SPEC_BUCKETS}
+    warm_one = {"levels": [cm.grid_point(i) for i in LATE_ONE],
+                "quantum_buckets": SPEC_BUCKETS}
+    groups = {"block_matmul": "block_matmul_kernel",
+              "flash_attention": "flash_attention_kernel",
+              "cublas bf16": "nvjet", "cublas fp32": "gemmSN",
+              "cublas other": "gemm", "elementwise": "elementwise_kernel",
+              "sort": "ort", "reduce": "reduce_kernel", "index": "ndex"}
+    out: dict = {"failures": [], "seconds": {}, "layers": cfg.num_layers,
+                 "params": n_params, "init_peak_bytes": init_peak}
+
+    def attempt(name, fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        except SmokeFailure as e:
+            out["failures"].append(f"{arch} {name}: {e}")
+            report(f"late {arch} {name} FAILED: {e}")
+            return None
+        finally:
+            out["seconds"][name] = time.perf_counter() - t
+
+    eager = attempt("eager serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, late_launches(cfg),
+        engine_kw={"cuda_graphs": False}, warmup_kw=warm,
+        levels=LATE_LEVELS))
+    graphed = attempt("graphed serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, late_launches(cfg),
+        warmup_kw=warm, levels=LATE_LEVELS))
+    engine = graphed[0] if graphed else None
+    if graphed:
+        out["serve"] = graphed[1]
+    if eager and graphed:
+        out["eager"] = eager[1]
+        attempt("eager against graphed", lambda: same_streams(
+            arch, graphed[1], eager[1], report))
+    del eager
+    gc.collect()
+
+    def paged_serve():
+        paged_prompts, order = sharing_prompts(prompts, cfg.vocab_size, seed)
+        eng, res = serve(cfg, params, paged_prompts, dev, report, counters,
+                         late_launches(cfg, paged=True),
+                         engine_kw={"page_size": PAGE_SIZE},
+                         after={2: 0, 3: 0}, warmup_kw=warm_one,
+                         levels=LATE_ONE)
+        check_paged_serve(eng, res, report)
+        if graphed:
+            same = [res["streams"][j] == graphed[1]["streams"][i]
+                    for j, i in enumerate(order) if i is not None]
+            res["streams_equal_to_dense"] = sum(same)
+            report(f"{arch} paged: {sum(same)} of {len(same)} streams equal "
+                   "the dense serve's (not gated: the paged and dense "
+                   "kernels sum in different orders"
+                   + ("; the sharers change the rows that route together)"
+                      if cfg.moe else ")"))
+        return res
+    out["paged"] = attempt("paged serve", paged_serve)
+    gc.collect()
+    check = whole_model_check_moe if cfg.moe else whole_model_check
+    out["whole_model"] = attempt("whole model", lambda: check(
+        cfg, params, prompts[1], dev, report))
+    if cfg.moe and engine is not None:
+        out["spec"] = attempt("spec", lambda: late_spec_moe(
+            cfg, params, engine, dev, report, counters, seed))
+        out["moe_layers"] = attempt("routed experts timing", lambda:
+                                    moe_layer_times(cfg, params, dev,
+                                                    report))
+    if engine is not None:
+        # the profile leaves requests resident: last on this engine
+        out["profile_quantum"] = attempt("quantum profile", lambda:
+                                         profile_quantum(engine, prompts,
+                                                         report, groups))
+    del engine, graphed
+    gc.collect()
+    if arch == "llama3-405b":
+        out["spec"] = attempt("paged spec", lambda: late_spec_paged(
+            cfg, params, dev, report, counters, seed))
+    serves = [r["max_memory_allocated"] for r in (
+        out.get("serve"), out.get("eager"), out.get("paged")) if r]
+    out["serve_peak_bytes"] = max(serves, default=None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_arch
+    report(f"late {arch}: {out['s']:.1f} s ("
+           + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items())
+           + f"); peak device memory {init_peak / 2**30:.2f} GiB while the "
+           "weights were made, "
+           + ("not measured" if not serves else
+              f"{max(serves) / 2**30:.2f} GiB")
+           + " in the serves")
+    return out
+
+
+def serve_late(dev, counters, report, seed) -> dict:
+    """Phase 13: each config of LATE_ARCHS in turn; the phase fails at its
+    end if any check did."""
+    t_phase = time.perf_counter()
+    out = {arch: serve_late_config(arch, dev, counters, report, seed)
+           for arch in LATE_ARCHS}
+    failures = [f for arch in LATE_ARCHS for f in out[arch]["failures"]]
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"late: phase 13 took {out['phase_s']:.1f} s ("
+           + ", ".join(f"{a} {out[a]['s']:.1f}" for a in LATE_ARCHS)
+           + f"); levels {'/'.join(map(str, LATE_LEVELS))}")
+    require(not failures, "phase 13: " + "; ".join(failures))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5142,6 +5566,8 @@ def main() -> int:
     seconds["11 hybrid"] = hybrid["phase_s"]
     moe = serve_moe(dev, all_counters, report, args.seed)
     seconds["12 moe"] = moe["phase_s"]
+    late = serve_late(dev, all_counters, report, args.seed)
+    seconds["13 late"] = late["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -5172,6 +5598,18 @@ def main() -> int:
     for side in (moe["spec"]["plain_launches"], moe["spec"]["spec_launches"],
                  clone["spec"]["launches"]):
         moe_launches_by.update(side)
+    # phase 13's serves: each config's graphed chunked and paged serves and
+    # both sides of its speculative serve (arctic-480b dense, llama3-405b
+    # paged)
+    late_by = collections.Counter()
+    for arch in LATE_ARCHS:
+        res = late[arch]
+        for key in ("serve", "paged"):
+            for name, per_tile in res[key]["launches"].items():
+                late_by[name] += sum(per_tile.values())
+        if "spec" in res:
+            late_by.update(res["spec"]["plain_launches"])
+            late_by.update(res["spec"]["spec_launches"])
     kernels = []
     for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
@@ -5192,6 +5630,7 @@ def main() -> int:
             "spec_launches": spec_launches.get(name, 0),
             "hybrid_launches": hybrid_launches_by.get(name, 0),
             "moe_launches": moe_launches_by.get(name, 0),
+            "late_launches": late_by.get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -5207,7 +5646,7 @@ def main() -> int:
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
-        "moe": moe,
+        "moe": moe, "late": late,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

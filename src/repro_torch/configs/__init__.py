@@ -1,7 +1,7 @@
 """Architecture config registry of the PyTorch port.
 
-Holds the configs ported so far (the dense, ssm, hybrid and moe
-families).
+Holds the configs ported so far: every token-input config of the
+reference's registry (the dense, ssm, hybrid and moe families).
 ``get_config(name)`` returns the published config; ``get_reduced_config``
 applies the same reduction rules as ``repro.configs.get_reduced_config``
 (few layers, narrow widths, tiny vocab) for CPU tests; ``get_shape(name)``
@@ -16,15 +16,16 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_v2_lite_16b, gemma_2b, \
-    mamba2_780m, recurrentgemma_2b, starcoder2_3b
+from repro_torch.configs import arctic_480b, deepseek_v2_lite_16b, \
+    gemma_2b, llama3_405b, mamba2_780m, minicpm_2b, recurrentgemma_2b, \
+    starcoder2_3b
 from repro_torch.configs.base import SHAPES, MLAConfig, ModelConfig, \
     MoEConfig, ShapeConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (deepseek_v2_lite_16b, gemma_2b, mamba2_780m,
-              recurrentgemma_2b, starcoder2_3b)
+    for m in (arctic_480b, deepseek_v2_lite_16b, gemma_2b, llama3_405b,
+              mamba2_780m, minicpm_2b, recurrentgemma_2b, starcoder2_3b)
 }
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))

@@ -108,22 +108,32 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softcap=softcap)
 
 
+def _settled():
+    """The ``write_rows`` result of a write that needs no settling."""
+
+
 def write_rows(cache: dict, new: dict, cache_index, *,
                live: torch.Tensor | None = None,
-               page_table: torch.Tensor | None = None) -> None:
+               page_table: torch.Tensor | None = None):
     """Write each row's S new entries (``new[name]`` (B, S, ...)) into the
     cache leaves ``cache[name]`` (dense rows (B, Tmax, ...) or, with
     ``page_table``, page pools (n_pages + 1, page_size, ...)) from
-    ``cache_index`` on, in place.
+    ``cache_index`` on, in place.  Returns ``settle``, which the caller
+    calls once it has read the cache.
 
     ``cache_index`` is a host int (all rows aligned; checked on the host)
-    or a (B,) tensor.  ``live`` (B,) bool masks the per-row write: a dense
-    row that is not live keeps its entries bit-exact, a paged one writes
-    to the trash page.  A multi-token write with a live mask (a verify
-    pass) keeps every write inside the cache: a paged position past the
-    table goes to the trash page, and a dense position past the row (a
-    frozen row near the end of its slot; the reference's scatter drops
-    it) is not written."""
+    or a (B,) tensor.  ``live`` (B,) bool masks the per-row write.  A
+    dense row that is not live is written too, so that its attention reads
+    its own new entries as the reference's (which writes every row and
+    reverts afterwards) does: whatever routes every row together (a
+    capacity MoE) sees the reference's inputs; ``settle()`` then puts its
+    old entries back, bit-exact.  A paged row that is not live writes to
+    the trash page (its pages may be shared with a live row's prefix) and
+    reads its stale entry.  A multi-token write with a live mask (a
+    verify pass) keeps every write inside the cache: a paged position
+    past the table goes to the trash page, and a dense position past the
+    row (a frozen row near the end of its slot; the reference's scatter
+    drops it) is not kept."""
     b, s = next(iter(new.values())).shape[:2]
     first = cache[next(iter(new))]
     if page_table is not None:
@@ -148,7 +158,7 @@ def write_rows(cache: dict, new: dict, cache_index, *,
         off = rows % ps
         for name, val in new.items():
             cache[name][phys, off] = val.to(cache[name].dtype)
-        return
+        return _settled
     if isinstance(cache_index, int):
         # a host int is checked on the host; a tensor's rows are the
         # caller's to keep inside the cache (reading them would sync)
@@ -159,7 +169,7 @@ def write_rows(cache: dict, new: dict, cache_index, *,
         for name, val in new.items():
             cache[name][:, cache_index:cache_index + s] = \
                 val.to(cache[name].dtype)
-        return
+        return _settled
     rows = cache_index[:, None] + torch.arange(s, device=first.device)
     bidx = torch.arange(b, device=first.device)[:, None]
     vals = {name: val.to(cache[name].dtype) for name, val in new.items()}
@@ -178,12 +188,21 @@ def write_rows(cache: dict, new: dict, cache_index, *,
             vals[name] = val.gather(1, idx.expand_as(val))
         keep = keep & (cache_index < t_max)[:, None]
         rows = clamped
+    if keep is None:
+        for name, val in vals.items():
+            cache[name][bidx, rows] = val
+        return _settled
+    kept = {}
     for name, val in vals.items():
         leaf = cache[name]
-        if keep is not None:
-            mask = keep.reshape(*keep.shape, *(1,) * (val.ndim - 2))
-            val = torch.where(mask, val, leaf[bidx, rows])
+        mask = keep.reshape(*keep.shape, *(1,) * (val.ndim - 2))
+        kept[name] = torch.where(mask, val, leaf[bidx, rows])
         leaf[bidx, rows] = val
+
+    def settle():
+        for name, val in kept.items():
+            cache[name][bidx, rows] = val
+    return settle
 
 
 def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
@@ -226,8 +245,8 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                    kv_valid_len=s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
     elif page_table is not None:
-        write_rows(cache, {"k": k, "v": v}, cache_index, live=live,
-                   page_table=page_table)
+        settle = write_rows(cache, {"k": k, "v": v}, cache_index,
+                            live=live, page_table=page_table)
         ck, cv = cache["k"], cache["v"]
         kvl = cache_index + s
         if use_kernel_hook:
@@ -239,12 +258,14 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                                     offset=positions[..., 0].reshape(-1),
                                     kv_valid_len=kvl,
                                     window=cfg.sliding_window)
+        settle()
     else:
-        write_rows(cache, {"k": k, "v": v}, cache_index, live=live)
+        settle = write_rows(cache, {"k": k, "v": v}, cache_index, live=live)
         ck, cv = cache["k"], cache["v"]
         y = attend(q, ck, cv, q_positions=positions,
                    kv_valid_len=cache_index + s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
+        settle()
     return torch.einsum("bshd,hdm->bsm", y, params["wo"].to(x.dtype))
 
 

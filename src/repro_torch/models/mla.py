@@ -115,11 +115,12 @@ def latent_attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     q_nope, q_rope = latent_queries(params, x, cfg, mla, positions)
     c_kv, k_rope = compress_latents(params, x, cfg, mla, positions)
 
+    settle = None
     if cache is None:
         ckv_all, krope_all, kv_len = c_kv, k_rope, s
     else:
-        write_rows(cache, {"c_kv": c_kv, "k_rope": k_rope}, cache_index,
-                   live=live, page_table=page_table)
+        settle = write_rows(cache, {"c_kv": c_kv, "k_rope": k_rope},
+                            cache_index, live=live, page_table=page_table)
         ckv_all, krope_all = cache["c_kv"], cache["k_rope"]
         if page_table is not None:
             n = page_table.shape[1] * ckv_all.shape[1]
@@ -169,6 +170,8 @@ def latent_attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         y = torch.cat([attn_chunk(q_nope[:, i:i + cs], q_rope[:, i:i + cs],
                                   positions[:, i:i + cs])
                        for i in range(0, s, cs)], dim=1)
+    if settle is not None:
+        settle()
     return torch.einsum("bshd,hdm->bsm", y, params["wo"].to(x.dtype))
 
 

@@ -6,9 +6,9 @@ leading ``"layers"`` axis (``blocks/dense/...``, ``blocks/ssm/...``; the
 hybrid's ``blocks/rec_0``, ``blocks/rec_1``, ``blocks/attn_local_2``
 stacked over its groups, then the unstacked ``epi_0``, ``epi_1``;
 deepseek's unstacked dense ``pro_0`` before the stacked
-``blocks/moe_ds``), so their path strings and shapes line up with the
-JAX trees; the layers run as a Python loop over views of the stacked
-tensors.  Caches are updated
+``blocks/moe_ds``; arctic's stacked ``blocks/moe_arctic``), so their
+path strings and shapes line up with the JAX trees; the layers run as
+a Python loop over views of the stacked tensors.  Caches are updated
 in place: the decode entry points return the cache they were given, and
 a fused decode quantum masks the cache write of every row past its step
 budget (KV rows, conv, SSD and RG-LRU state, ring slots) instead of
@@ -76,20 +76,19 @@ def plan_layers(cfg: ModelConfig) -> LayerPlan:
     """The reference's ``make_plan`` for the families the port serves:
     dense and ssm stack ``cfg.num_layers`` blocks of the family's kind;
     the hybrid repeats its block pattern (``"rec"`` or ``"attn_local"``)
-    and unrolls the remainder after the groups; deepseek's moe unrolls its
+    and unrolls the remainder after the groups; a moe config unrolls its
     first dense layers (``"ds_dense0"``: MLA and a dense MLP) before a
-    stack of ``"moe_ds"`` blocks (MLA, routed and shared experts)."""
+    stack of its MoE kind: ``"moe_arctic"`` (standard attention, a dense
+    residual MLP beside the routed experts) when ``dense_residual`` is
+    set, else ``"moe_ds"`` (MLA, routed and shared experts)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the {FAMILIES} families only "
             f"(got {cfg.family!r})")
     if cfg.family == "moe":
-        if cfg.moe.dense_residual:
-            raise NotImplementedError(
-                f"{cfg.name}: the dense-residual MoE block (moe_arctic) is "
-                "not ported yet (ROADMAP A11.3)")
+        kind = "moe_arctic" if cfg.moe.dense_residual else "moe_ds"
         n = cfg.first_dense_layers
-        return LayerPlan(("ds_dense0",) * n, ("moe_ds",),
+        return LayerPlan(("ds_dense0",) * n, (kind,),
                          cfg.num_layers - n, ())
     if cfg.family == "hybrid":
         pat = tuple("rec" if p == "rec" else "attn_local"
@@ -123,6 +122,10 @@ def _kind_specs(cfg: ModelConfig, kind: str) -> dict:
                 "attn": mla_mod.latent_attention_params(cfg, cfg.mla),
                 "ln2": L.norm_specs(cfg),
                 "mlp": L.mlp_specs(cfg, cfg.first_dense_d_ff)}
+    if kind == "moe_arctic":
+        return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+                "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg),
+                "moe": moe_mod.expert_specs(cfg, cfg.moe)}
     if kind == "moe_ds":
         s = {"ln1": L.norm_specs(cfg),
              "attn": mla_mod.latent_attention_params(cfg, cfg.mla),
@@ -168,7 +171,7 @@ def _rec_state_specs(cfg: ModelConfig, batch: int) -> dict:
 def _kind_cache_leaves(cfg: ModelConfig, kind: str, batch: int,
                       t_max: int) -> dict:
     """One block's cache (the reference's ``_block_cache_specs``)."""
-    if kind == "dense":
+    if kind in ("dense", "moe_arctic"):
         return _kv_specs(cfg, batch, t_max)
     if kind == "ssm":
         return _ssm_state_specs(cfg, batch)
@@ -218,8 +221,9 @@ def _blank_leaf(path: tuple[str, ...], spec: ParamSpec, device):
 class TorchModel:
     """The dense decoder (``family == "dense"``), the attention-free
     Mamba-2 stack (``family == "ssm"``), the RG-LRU / local-attention
-    hybrid (``family == "hybrid"``) and deepseek's MLA with capacity MoE
-    (``family == "moe"``)."""
+    hybrid (``family == "hybrid"``) and the capacity MoE (``family ==
+    "moe"``): deepseek's MLA with routed and shared experts, or arctic's
+    standard attention with a dense residual MLP beside the experts."""
 
     def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
         if cfg.family not in FAMILIES:
@@ -395,8 +399,15 @@ class TorchModel:
                                             use_kernel_hook=self.use_kernels)
                 x = x + out
                 continue
-            x = x + L.apply_mlp(p["mlp"], xm, cfg.activation,
-                                use_kernel_hook=self.use_kernels)
+            mlp_out = L.apply_mlp(p["mlp"], xm, cfg.activation,
+                                  use_kernel_hook=self.use_kernels)
+            if kind == "moe_arctic":
+                # the dense residual beside the routed experts, added in
+                # the reference's order: (x + mlp) + moe, each in bf16
+                moe_out, _ = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                x = x + mlp_out + moe_out
+                continue
+            x = x + mlp_out
         return x
 
     def _windowed_attention(self, params, x, *, positions, cache, t,

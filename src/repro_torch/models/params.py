@@ -7,11 +7,14 @@ package's trees (``repro.models.params``), so a path string such as
 ``init_params`` materializes a tree on a device from a
 ``torch.Generator``: it reproduces the reference initializer's
 *distribution* (fan-in scaled normal, 0.02 for embeddings, ones and
-zeros), not its bits.
+zeros), not its bits.  A leaf too large to draw whole in fp32 beside
+the rest of the tree (arctic-480b's expert stacks: 17.85 GB in bf16, a
+35.7 GB fp32 draw) is drawn slice by slice along its leading axes.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -79,11 +82,44 @@ def std_of(spec: ParamSpec) -> float:
     return float(fan_in) ** -0.5
 
 
+# A normal leaf of more elements than this (a 32 GiB fp32 draw) is drawn
+# in slices of at most SLICE_DRAW_ELEMENTS along its leading axes.  The
+# largest leaf of a config registered before arctic-480b is deepseek-v2-
+# lite-16b's expert stack (4.8e9 elements), drawn whole: those configs'
+# weights keep their bits.
+WHOLE_DRAW_ELEMENTS = 2 ** 33
+SLICE_DRAW_ELEMENTS = 2 ** 28
+
+
+def draws_in_slices(spec: ParamSpec) -> bool:
+    """Whether ``init_params`` draws this normal leaf slice by slice."""
+    return spec.init not in ("zeros", "ones") and \
+        spec.size > WHOLE_DRAW_ELEMENTS
+
+
+def _draw_normal(spec: ParamSpec, generator: torch.Generator, device):
+    std = std_of(spec)
+    if not draws_in_slices(spec):
+        leaf = torch.randn(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device)
+        return leaf.mul_(std).to(spec.dtype)
+    # the fewest leading axes whose slices fit SLICE_DRAW_ELEMENTS; each
+    # slice is drawn in fp32, scaled and cast into the bf16 leaf
+    lead = next(n for n in range(1, len(spec.shape) + 1)
+                if int(np.prod(spec.shape[n:])) <= SLICE_DRAW_ELEMENTS)
+    leaf = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for idx in itertools.product(*(range(n) for n in spec.shape[:lead])):
+        part = torch.randn(spec.shape[lead:], generator=generator,
+                           dtype=torch.float32, device=device)
+        leaf[idx] = part.mul_(std).to(spec.dtype)
+    return leaf
+
+
 def init_params(specs: PyTree, generator: torch.Generator,
                 device) -> PyTree:
     """Materialize a parameter tree on ``device``, drawing every normal
     leaf from ``generator`` (which must live on ``device``) in sorted
-    path order."""
+    path order (a leaf past WHOLE_DRAW_ELEMENTS slice by slice)."""
     out: dict = {}
     for path, spec in tree_leaves_with_path(specs):
         if spec.init == "zeros":
@@ -91,9 +127,7 @@ def init_params(specs: PyTree, generator: torch.Generator,
         elif spec.init == "ones":
             leaf = torch.ones(spec.shape, dtype=spec.dtype, device=device)
         else:
-            leaf = torch.randn(spec.shape, generator=generator,
-                               dtype=torch.float32, device=device)
-            leaf = leaf.mul_(std_of(spec)).to(spec.dtype)
+            leaf = _draw_normal(spec, generator, device)
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -219,3 +219,15 @@ def test_bridge_round_trip_carries_the_ssm_leaves():
         np.testing.assert_array_equal(
             out["blocks"]["ssm"][name],
             np.asarray(jcache["blocks"]["ssm"][name], np.float32))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -42,7 +42,7 @@ from repro_torch.serving import cluster as t_cl  # noqa: E402
 from repro_torch.serving import runtime as t_rt  # noqa: E402
 from repro_torch.serving import slo as t_slo  # noqa: E402
 from repro_torch.serving.tenants import cluster_plans as t_cluster_plans  # noqa: E402
-from test_torch_core import same  # noqa: E402
+from test_torch_core import same, shared_executables  # noqa: E402
 
 MAX_LEN = 32
 CLEAR_MARGIN = 2e-2
@@ -328,3 +328,23 @@ def test_build_cluster_draws_seeded_weights_and_warms_distinct_versions(
     rt.serve(t_rt.Workload.poisson(PAIR, 120, 6, prompt_len=5,
                                    max_new_tokens=2, seed=8))
     assert {t.name: t.engine.version_cache.traces for t in a} == builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

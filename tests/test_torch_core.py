@@ -20,6 +20,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
 from repro.configs import paper_suite as r_suite  # noqa: E402
 from repro.core import allocator as r_alloc  # noqa: E402
 from repro.core import cost_model as r_cm  # noqa: E402
@@ -32,6 +34,7 @@ from repro.core import scheduler as r_sched  # noqa: E402
 from repro.serving import request as r_req  # noqa: E402
 from repro.serving import simulator as r_sim  # noqa: E402
 from repro.serving import tenants as r_ten  # noqa: E402
+from repro.serving import version_cache as r_vc  # noqa: E402
 from repro_torch.configs import paper_suite as t_suite  # noqa: E402
 from repro_torch.core import allocator as t_alloc  # noqa: E402
 from repro_torch.core import cost_model as t_cm  # noqa: E402
@@ -49,6 +52,62 @@ SIDES = {"ref": (r_cm, r_sched, r_sim, r_ten),
          "port": (t_cm, t_sched, t_sim, t_ten)}
 MODELS = sorted(r_suite.paper_models())
 TENANTS = ["resnet50", "googlenet"]
+
+
+class SharedXla:
+    """The ``jax`` module as the JAX package's version cache sees it in a
+    test module that builds many JAX engines: ``jit`` traces and lowers as
+    jax does, and each lowered module compiles once, whichever engine
+    lowered it (every engine lowers its calls afresh, through closures of
+    its own; an executable holds no state: the engine passes it its
+    weights and buffers).  Install it for a module with
+    ``shared_executables``."""
+
+    def __init__(self):
+        self._table: dict = {}
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    def jit(self, fn, **kw):
+        return _SharedJit(jax.jit(fn, **kw), self._table)
+
+
+class _SharedLowered:
+    def __init__(self, lowered, table):
+        self._lowered, self._table = lowered, table
+
+    def compile(self):
+        key = self._lowered.as_text()
+        if key not in self._table:
+            self._table[key] = self._lowered.compile()
+        return self._table[key]
+
+
+class _SharedJit:
+    def __init__(self, jitted, table):
+        self._jit, self._table, self._calls = jitted, table, {}
+
+    def lower(self, *args):
+        return _SharedLowered(self._jit.lower(*args), self._table)
+
+    def __call__(self, *args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        sig = (tree, tuple((getattr(a, "shape", None),
+                            str(getattr(a, "dtype", type(a))))
+                           for a in leaves))
+        if sig not in self._calls:
+            self._calls[sig] = self.lower(*args).compile()
+        return self._calls[sig](*args)
+
+
+def shared_executables():
+    """A module-scoped fixture body: the JAX version cache compiles
+    through one ``SharedXla`` for the module's tests."""
+    saved = r_vc.jax
+    r_vc.jax = SharedXla()
+    yield
+    r_vc.jax = saved
 
 
 def same(a, b) -> bool:

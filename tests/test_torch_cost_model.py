@@ -164,6 +164,26 @@ def test_cluster_and_lm_plans_match_reference(arch):
                 r_ten.engine_version_sets(r_ten.lm_serving_plans(spec)))
 
 
+# the configs registered with the dense-residual MoE: their layer kinds
+# (``moe_arctic``; dense at MHA and at G 16), profiles and plans
+LATE_ARCHS = ("arctic-480b", "minicpm-2b", "llama3-405b")
+
+
+@pytest.mark.parametrize("arch", LATE_ARCHS)
+def test_late_configs_plans_match_reference(arch):
+    cfg, rcfg = get_config(arch), r_get_config(arch)
+    assert dataclasses.asdict(make_plan(cfg)) == \
+        dataclasses.asdict(r_make_plan(rcfg))
+    assert t_prof.lm_layer_kinds(cfg) == r_prof.lm_layer_kinds(rcfg)
+    assert same(t_ten.cluster_plan(arch, t_cm.CPU_3990X),
+                r_ten.cluster_plan(arch, r_cm.CPU_3990X))
+    spec = [(arch, "decode_32k", 50.0)]
+    t_plans = t_ten.lm_serving_plans(spec)
+    assert same(t_plans, r_ten.lm_serving_plans(spec))
+    assert same(t_ten.engine_version_sets(t_plans),
+                r_ten.engine_version_sets(r_ten.lm_serving_plans(spec)))
+
+
 def test_engine_selects_the_reference_engines_tiles():
     """Both engines over their package's CPU plan: the dominant layer's
     table gives the same ``{"matmul": ...}`` tiles at every level; the
@@ -196,3 +216,15 @@ def test_engine_selects_the_reference_engines_tiles():
     assert te.stream is None
     assert te.spec_stats.keys() == je.spec_stats.keys()
     assert all(v == 0 for v in te.spec_stats.values())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

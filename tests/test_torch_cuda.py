@@ -1024,3 +1024,111 @@ def test_mla_clone_paged_engine_serves_the_dense_streams(cuda_device):
         assert got[1:] == [0, 0, 0], got
     assert engines[1].page_stats["shared_hits"] > 0
     assert engines[1].pool.used_pages == 0
+
+
+# the GEMMs of the configs registered with the dense-residual MoE:
+# arctic-480b's dense residual (7168 <-> 4864), llama3-405b's MLP (16384
+# <-> 53248: 416 N tiles of 128, 832 K tiles of 64), minicpm-2b's (2304
+# <-> 5760: 36 and 90 K tiles, uneven across a cluster of 8)
+LATE_GEMMS = ((7168, 4864), (4864, 7168), (16384, 53248), (53248, 16384),
+              (2304, 5760), (5760, 2304))
+# their attention (query heads, KV heads, head_dim): KV groups of 7, 16, 1
+LATE_HEADS = [(56, 8, 128), (128, 8, 128), (36, 36, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(len(H100_LEVEL_TILES)))
+def test_block_matmul_at_the_late_configs_shapes(cuda_device, level):
+    """B1 at the six GEMMs at a decode step's, a chunk's and a verify's M
+    under each level's tile: against the plain version, and bit for bit
+    across two launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(40 + level)
+    tiles = H100_LEVEL_TILES[level]["matmul"]
+    for k, n in LATE_GEMMS:
+        w = (torch.randn(k, n, generator=g, device=cuda_device)
+             * k ** -0.5).bfloat16()
+        for m in (4, 16, 20):
+            x = torch.randn(m, k, generator=g, device=cuda_device).bfloat16()
+            got = bm.block_matmul_2d(x, w, **tiles)
+            torch.testing.assert_close(got.float(),
+                                       matmul_ref(x, w).float(),
+                                       rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            assert torch.equal(got, bm.block_matmul_2d(x, w, **tiles))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, len(H100_LEVEL_TILES) - 1])
+@pytest.mark.parametrize("h,kh,d", LATE_HEADS)
+def test_flash_attention_at_kv_groups_1_7_and_16(cuda_device, h, kh, d,
+                                                 level):
+    """B2 at G = 7 (a 64-row tile splits a query position's heads), 16 (a
+    16-token chunk is 256 rows: four tiles) and 1 (one row a block at
+    decode): decode rows at positions 0 and 511, 16-token chunks and a
+    verify of 5 queries a row, against the plain version and bit for bit
+    across two launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(h + kh + level)
+    tiles = H100_LEVEL_TILES[level]["attention"]
+    for b, s, offs in ((4, 1, [0, 100, 300, 511]), (2, 16, [32, 240]),
+                       (4, 5, [68, 140, 260, 300])):
+        q = torch.randn(b, s, h, d, generator=g,
+                        device=cuda_device).bfloat16()
+        kk = torch.randn(b, 512, kh, d, generator=g,
+                         device=cuda_device).bfloat16()
+        v = torch.randn(b, 512, kh, d, generator=g,
+                        device=cuda_device).bfloat16()
+        off = torch.tensor(offs, device=cuda_device)
+        kw = dict(offset=off, kv_valid_len=off + s, **tiles)
+        got = fa.flash_attention(q, kk, v, **kw)
+        want = attention_ref(q, kk, v, offset=off, kv_valid_len=off + s)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, fa.flash_attention(q, kk, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kh,d", LATE_HEADS)
+def test_flash_attention_paged_at_kv_groups_1_7_and_16(cuda_device, h, kh,
+                                                       d):
+    """B3 at the three groups over shuffled pages of 16: a decode step and
+    a verify of 5 queries a row (at G 16 that is 80 rows: two row tiles
+    in one launch), against the plain version and bit for bit across two
+    launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(h + kh)
+    kvl = [5, 37, 300, 512]
+    _, kp, vp, table = _paged_inputs(g, cuda_device, 4, kh, 16, kvl, d=d,
+                                     h=h)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+    for s in (1, 5):
+        # llama3-405b's verify: 80 flattened rows, two row tiles
+        assert (s * (h // kh) > fa.MAX_ROWS) == (s == 5 and h // kh == 16)
+        q = torch.randn(4, s, h, d, generator=g,
+                        device=cuda_device).bfloat16()
+        kw = dict(offset=kvl_t - s, kv_valid_len=kvl_t)
+        got = fap.flash_attention_paged(q, kp, vp, table, **kw)
+        want = paged_attention_ref(q, kp, vp, table, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, fap.flash_attention_paged(q, kp, vp, table,
+                                                          **kw))
+
+
+@pytest.mark.cuda
+def test_arctic_graphed_engine_serves_the_eager_streams(cuda_device):
+    """Eager and graphed engines on reduced arctic-480b (dense residual
+    beside 4 experts, top-2): identical streams and launch counts, nothing
+    captured after warmup; every forward pass launches B1 3 times and B2
+    once a layer, B3 and B4 never."""
+    cfg = get_reduced_config("arctic-480b")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    engines = [ServingEngine(cfg, params, batch_slots=2, max_len=64,
+                             cuda_graphs=graphs) for graphs in (False, True)]
+    for eng in engines:
+        eng.warmup()
+    prompt = np.arange(1, 41, dtype=np.int32) * 7 % cfg.vocab_size
+    prompts = [prompt[:n] for n in (3, 39, 17)]
+    results = [_serve_moe(eng, prompts) for eng in engines]
+    n = cfg.num_layers
+    for _, got in results:
+        assert got[0] > 0 and got[0] % (3 * n) == 0, got
+        assert got[1] == got[0] // 3 and got[2:] == [0, 0], got
+    assert results[0] == results[1]

@@ -26,6 +26,7 @@ from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from repro_torch.serving.engine import H100_LEVEL_TILES  # noqa: E402
 from test_torch_model import MAMBA_STREAM_LEN, mamba_prompt  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 PROMPT_LENS = (3, 7, 5)          # deliberately misaligned
 N_NEW = 4
@@ -312,3 +313,23 @@ def test_mamba2_warmup_builds_everything_the_serve_uses(mamba_setup):
     assert all(r.done for r in reqs)
     assert vc.traces == traces0, "no new builds after warmup"
     assert all("ssd" not in t for t in H100_LEVEL_TILES)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

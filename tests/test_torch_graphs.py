@@ -49,6 +49,7 @@ from repro_torch.serving import engine as torch_engine  # noqa: E402
 from repro_torch.serving.version_cache import StaticArgError, \
     VersionCache  # noqa: E402
 from test_torch_model import mamba_prompt  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 MAX_LEN = 32
 LOGIT_TOL = 2e-2
@@ -399,3 +400,23 @@ def test_engine_warmup_raises_when_a_capture_fails(gemma):
     eng.version_cache.graphs = ReplayOnCPU(fail=True)
     with pytest.raises(RuntimeError, match="capturing"):
         eng.warmup(levels=[0.0])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

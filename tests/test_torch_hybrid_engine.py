@@ -46,6 +46,7 @@ from repro_torch.models.model import cache_batch_axis  # noqa: E402
 from repro_torch.models.params import tree_leaves_with_path  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from test_torch_graphs import ReplayOnCPU  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
 MAX_LEN = 64
@@ -318,3 +319,11 @@ def test_warm_decode_then_admission_leaves_no_stale_ring(models, chunked):
         assert torch.equal(got[path], want[path]), path
     pos = got[("blocks", "attn_local_2", "pos")]
     assert sorted(pos[pos >= 0].tolist()) == list(range(len(prompt)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

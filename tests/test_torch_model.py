@@ -447,3 +447,15 @@ def test_mamba2_decode_quantum_matches_jax(mamba_pair, prompt_lens, n_left,
             frozen = np.array_equal(after["blocks"]["ssm"][name][:, i],
                                     before["blocks"]["ssm"][name][:, i])
             assert frozen == (n_left[i] == 0), (i, name)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -51,6 +51,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import tree_leaves_with_path  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from repro_torch.serving import paging  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 MAX_LEN = 32
 PAGE = 8
@@ -723,3 +724,23 @@ def test_monolithic_prefill_paged_matches_dense(setup):
             assert eng.pool.used_pages == 0 and eng.pool.committed == 0
             assert eng.page_stats["shared_hits"] == 0   # needs chunking
     assert outs[True] == outs[False]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

@@ -324,3 +324,15 @@ def test_fill_ring_matches_reference(s):
     rglru.fill_ring(ring_t, _t(kn, torch.bfloat16), _t(vn, torch.bfloat16),
                     WINDOW)
     _assert_ring(ring_t, ring_j)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_core import shared_executables  # noqa: E402
 from test_torch_runtime import _clean_dispatch, \
     check_serve_matches_reference, models, plans  # noqa: E402,F401
 
@@ -36,3 +37,23 @@ def test_virtual_time_serve_matches_reference(models, plans, case,
     assert te.spec_quanta > 0
     assert te.spec_stats == je.spec_stats
     assert te.expected_accept_per_step() == je.expected_accept_per_step()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

@@ -46,7 +46,7 @@ from repro_torch.serving import engine as torch_engine  # noqa: E402
 from repro_torch.serving import runtime as t_rt  # noqa: E402
 from repro_torch.serving import slo as t_slo  # noqa: E402
 from repro_torch.serving.tenants import build_paper_plans as t_plans  # noqa: E402
-from test_torch_core import same  # noqa: E402
+from test_torch_core import same, shared_executables  # noqa: E402
 
 MAX_LEN = 32
 TENANTS = ["resnet50", "googlenet"]
@@ -301,3 +301,23 @@ def test_measured_serve_matches_reference_on_injected_walls(setup, plans):
     assert tr.engine.counter_bank.observations == \
         jr.engine.counter_bank.observations > 0
     assert tr.engine.version_cache.traces == traces["torch"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

@@ -449,3 +449,15 @@ def test_spec_quantum_rejects_bad_static_keys(models, k, d):
     fn = vc.spec_quantum(vc.get({}), 4, 2, 2)
     assert vc.spec_quantum(vc.get({}), 4, 2, 2) is fn
     assert vc.get({}).spec == {(4, 2): fn}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -40,6 +40,7 @@ from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from test_torch_graphs import ReplayOnCPU  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 MAX_LEN = 64
 # twice the largest logit difference measured between the port and the
@@ -348,3 +349,11 @@ def test_no_build_after_warmup_and_replays_count_launches(models, case,
     finally:
         bm.LAUNCHES.clear()
         bm.LAUNCHES.update(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()

@@ -586,3 +586,15 @@ def test_a_header_edit_rebuilds_its_includers(tmp_path, monkeypatch):
     assert not cuda_build._stale("a") and not cuda_build._stale("b")
     os.utime(csrc / "inner.cuh", (3_000, 3_000))
     assert cuda_build._stale("a") and not cuda_build._stale("b")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -289,3 +289,15 @@ def test_mamba2_block_freezes_rows_that_are_not_live(mixer):
     for name in ("conv", "ssd"):
         assert torch.equal(cache[name][1], before[name][1])
         assert not torch.equal(cache[name][0], before[name][0])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -34,6 +34,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 from test_torch_model import SCAN_TOL, _exact, _np, _tt  # noqa: E402
+from test_torch_core import shared_executables  # noqa: E402
 
 ARCH = "starcoder2-3b"
 MAX_LEN = 64
@@ -165,3 +166,23 @@ def test_engine_tokens_identical_to_jax_engine(pair, paged):
     if paged:
         assert te.page_stats == je.page_stats
         assert te.pool.used_pages == 0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's small eager ops: as fast
+    alone, and the test runner's workers share the cores (with a thread
+    per core in each worker, the suite's runs took tens of times their
+    solo time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_executables():
+    """The JAX engines of this module share their compiled executables
+    (``test_torch_core.SharedXla``): each case builds new engines, which
+    would compile the same modules again."""
+    yield from shared_executables()
