@@ -21,9 +21,12 @@ Phases, each fatal on failure:
      ragged last N tile, 171 K tiles) and shared experts (2048 <-> 2816),
      at M = 4, 16 and 20 over phase 13's GEMMs (arctic-480b's dense
      residual 7168 <-> 4864, llama3-405b's 16384 <-> 53248, minicpm-2b's
-     2304 <-> 5760), and a K that a cluster of 8 cannot split evenly, B2
-     at phase 13's KV groups (7 and 16 at D 128, 1 at D 64: decode at
-     positions 0 and 511, 16-token chunks, a verify), B2 with MQA and GQA
+     2304 <-> 5760) and phase 14's (qwen2-vl-2b's 1536 <-> 8960,
+     musicgen-large's 2048 <-> 8192), and a K that a cluster of 8 cannot
+     split evenly, B2 at phase 13's KV groups (7 and 16 at D 128, 1 at D
+     64) and phase 14's (6 at D 128: a chunk's two row tiles split
+     position 10's heads; 1 at D 64 over 32 KV heads): decode at
+     positions 0 and 511, 16-token chunks, a verify, B2 with MQA and GQA
      at gemma-2b's heads and at starcoder2-3b's (24 over 2 KV heads, D
      128), decode rows at positions 0 and 511, 16-token chunks and a
      speculative verify pass (B 4, S 5), at recurrentgemma-2b's (10 over
@@ -36,7 +39,8 @@ Phases, each fatal on failure:
      with no visible key, windowed and softcapped cases, gemma-2b's and
      starcoder2-3b's head shapes, verify passes of five queries a row (also
      past a full slot), phase 13's three groups (llama3-405b's verify: 80
-     rows, two row tiles), also against the dense kernel), plus
+     rows, two row tiles) and phase 14's two, also against the dense
+     kernel), plus
      ragged shapes; every wrapper's shared-memory count held to the
      kernel's; with ``--b2-reference TREE`` every B2 output also equal to
      that checkout's B2 build bit for bit; then ``ssd_scan``'s phase
@@ -77,7 +81,7 @@ Phases, each fatal on failure:
   5. whole-model check: first-prefill-chunk and first-decode logits
      through the kernels and through the plain versions, same weights;
   6. serve (eager and graphed), sweep, pair, profile and check
-     mamba2-780m the same way (12 of its 48 layers: EARLY_LAYERS,
+     mamba2-780m the same way (6 of its 48 layers: EARLY_LAYERS,
      d_inner 3072, 48 SSD heads): ``ssd_scan`` launches once per layer
      for every prefill chunk of two or more tokens; the profile covers
      one 16-token prefill chunk and one 8-step decode quantum; the
@@ -102,8 +106,9 @@ Phases, each fatal on failure:
      five queries a row; B1 and B2 also at recurrentgemma-2b's: its MLP
      at M = 4, 16 and 20, B1 at deepseek-v2-lite-16b's four GEMMs at M =
      4, 16 and 20, the 2100-token windowed prefill and 16-token
-     chunks; B1 at phase 13's GEMMs at M = 4, 16 and 20, B2 and B3 at its
-     KV groups, at the level-0 tile only): kernel, plain version, one
+     chunks; B1 at phase 13's and phase 14's GEMMs at M = 4, 16 and 20,
+     B2 and B3 at their KV groups, at the level-0 tile only): kernel,
+     plain version, one
      PyTorch call
      as a yardstick where one exists, and the bound (bytes at 3.35 TB/s
      or FLOPs at 989 TFLOP/s, whichever is larger); the split and block
@@ -140,7 +145,7 @@ Phases, each fatal on failure:
      engines (``speculative=True, spec_depth=SPEC_DEPTH``, warmed at the
      levels the serves cycle: captures and seconds reported) for
      gemma-2b dense, gemma-2b paged (against a plain paged engine built
-     here) and mamba2-780m at 12 layers serve two arms in 8-step quanta
+     here) and mamba2-780m at 6 layers serve two arms in 8-step quanta
      while the level cycles: repetitive (constant-token prompts of
      20-250 tokens on gemma-2b, echo prompts on mamba2-780m;
      SPEC_REP_NEW new tokens) and adversarial (the serve's random
@@ -163,23 +168,23 @@ Phases, each fatal on failure:
      pass leaving the state of ``n_emit`` plain steps (bit-equal to the
      state carried in where ``n_emit`` is 0).  Reported: one verify
      quantum under torch.profiler against a 1-step plain quantum;
- 11. the hybrid family: recurrentgemma-2b at full width and 14 of its
+ 11. the hybrid family: recurrentgemma-2b at full width and 8 of its
      26 layers (EARLY_LAYERS, for the script's time: (rec, rec, attn) x
-     4 + (rec, rec); the RG-LRU in plain ops,
+     2 + (rec, rec); the RG-LRU in plain ops,
      a ring of the last 2048 keys per attention layer), seeded weights
      made on the card, ``batch_slots=4``, ``max_len=512``, warmed at the
      levels 0/5/9 and K-buckets 1-8.  Fatal: the six prompts x MAX_NEW
      tokens served eagerly and with graphs give equal streams, nothing
-     captured after warmup, one host sync a quantum, B1 exactly 42
+     captured after warmup, one host sync a quantum, B1 exactly 24
      launches per decode step and chunk and B2, B3, B4 none; a
-     ``chunked_prefill=False`` serve (B2 4 times per monolithic prefill)
+     ``chunked_prefill=False`` serve (B2 2 times per monolithic prefill)
      equals the chunked streams or parts at a two-ulp tie; a
      RING_PROMPT-token prompt prefilled monolithically (B2's window
      binding) and in 16-token chunks (the ring wraps), then RING_STEPS
      decode steps: logits within RING_RTOL of the largest, tokens equal
      where clear, ring positions equal; the whole model through the
      kernels against the plain versions (monolithic prefill, decode
-     step, chunk); the restore pass (B1 84, B2 0 per verify; layer by
+     step, chunk); the restore pass (B1 48, B2 0 per verify; layer by
      layer h within STATE_RTOL, conv and ring within two bf16 ulps, ring
      positions equal, a row emitting nothing unchanged); a speculative
      engine on constant-token prompts (echo prompts too if those draft
@@ -188,16 +193,16 @@ Phases, each fatal on failure:
      profiled 8-step quantum and 16-token chunk, warmup captures and
      seconds, the phase's seconds.  A failed check is reported and the
      phase runs on; it fails at its end;
- 12. the moe family: deepseek-v2-lite-16b at its published widths and 9
-     of its 27 layers (EARLY_LAYERS, for the script's time since phase 13
-     came: ``pro_0`` a dense MLP of 10944, then 8 ``moe_ds`` blocks:
+ 12. the moe family: deepseek-v2-lite-16b at its published widths and 5
+     of its 27 layers (EARLY_LAYERS, for the script's time: ``pro_0`` a
+     dense MLP of 10944, then 4 ``moe_ds`` blocks:
      MLA with a 512 + 64 latent cache, 64 routed experts top-6 at capacity
      factor 1.25, 2 shared experts as one MLP of 2816), seeded weights made
      on the card after the earlier phases' engines are freed,
      ``batch_slots=4``, ``max_len=512``.  Fatal: the six prompts x MAX_NEW
      tokens served eagerly and with graphs (levels 0/5/9, K-buckets 1-8)
      give equal streams (the same schedule routes the same groups),
-     nothing captured after warmup, one host sync a quantum, B1 exactly 27
+     nothing captured after warmup, one host sync a quantum, B1 exactly 15
      launches a forward pass (``moe_launches``) and B2, B3, B4 none; an
      eager monolithic serve (the first four prompts) and an eager paged
      serve (prefix sharing, the pool checks of phase 7, B3 none) at one
@@ -226,7 +231,7 @@ Phases, each fatal on failure:
      of its 35 layers: d_model 7168, 56 heads over 8 of 128, a dense
      residual MLP of 4864 beside 128 experts of 4864, top-2, capacity
      factor 1.25), llama3-405b (4 of 126: d_model 16384, 128 heads over 8
-     of 128, d_ff 53248, vocab 128256) and minicpm-2b (all 40: d_model
+     of 128, d_ff 53248, vocab 128256) and minicpm-2b (20 of 40: d_model
      2304, 36 heads over 36 of 64, d_ff 5760, vocab 122753, tied), widths
      published (LATE_LAYERS), seeded weights made on the card (arctic's
      expert stacks slice by slice).  Each: the six prompts x MAX_NEW
@@ -247,6 +252,33 @@ Phases, each fatal on failure:
      two-ulp ties (phase 10's rule), verifies and rollbacks above 0
      (drafting the last token's copies where n-gram drafts never roll
      back).  Reported: peak memory per config, the phase's seconds.
+     Failed checks are collected and the phase fails at its end;
+ 14. the frontends, after phase 13's engines are freed, one config's
+     weights resident at a time: qwen2-vl-2b (all 28 layers: d_model
+     1536, 12 heads over 2 of 128, G 6, swiglu MLP of 8960, vocab 151936
+     tied, M-RoPE sections 16/24/24) and musicgen-large (all 48: d_model
+     2048, 32 heads over 32 of 64, the plain gelu MLP of 8192 with
+     biases, two B1 GEMMs a layer, layernorm, sinusoidal positions),
+     published widths, seeded weights made on the card.  Each: the
+     embedding path eagerly through the model's entry points
+     (``make_sample_inputs`` patch or frame embeddings, FRONT_ROWS rows
+     of FRONT_PROMPT; qwen2-vl-2b with M-RoPE positions t 0, h i // 16,
+     w i): one prefill against 16-position ``prefill_chunk`` calls
+     (within LOGIT_RTOL, same argmax), FRONT_STEPS decode steps (tokens
+     on qwen2-vl-2b, frame embeddings on musicgen-large), the prefill and
+     the first step through the plain versions within LOGIT_RTOL; the
+     token path through ``ServingEngine``: the six prompts x MAX_NEW
+     tokens served with graphs at LATE_LEVELS with exact launches
+     (``late_launches``), one host sync a quantum and nothing captured
+     after warmup; an eager engine (no warmup) against the graphed one on
+     four one-chunk prompts and one 8-step quantum (streams and launches
+     equal); a graphed paged serve at level 0 (prefix sharing, phase 7's
+     pool checks); musicgen-large's speculative serve on that paged
+     engine (phase 13's rule: streams equal or parting at two-ulp ties,
+     verifies and rollbacks above 0, drafting the last token's copies
+     where n-gram drafts never roll back, and tokens the model does not
+     pick where those never do either); a profiled graphed 8-step
+     quantum.  Reported: peak memory per config, the phase's seconds.
      Failed checks are collected and the phase fails at its end.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -302,21 +334,23 @@ BATCH_SLOTS = 4
 MAX_LEN = 512
 # the single-engine paths' depth cuts, widths unchanged, to keep the
 # script well inside its time limit (each warmup captures 121 graphs of
-# every layer): phases 3-7 and 10 serve gemma-2b at 9 of its 18 layers,
-# phase 6 mamba2-780m at 12 of its 48, phase 11 recurrentgemma-2b at 14
-# of its 26 ((rec, rec, attn) x 4 + (rec, rec): the plan's groups and
-# its epilogue); phase 9 serves gemma-2b and mamba2-780m at full depth
-# phase 12 deepseek-v2-lite-16b at 9 of its 27 (pro_0 + 8 moe_ds)
-EARLY_LAYERS = {"gemma-2b": 9, "mamba2-780m": 12, "recurrentgemma-2b": 14,
-                "deepseek-v2-lite-16b": 9}
+# every layer; the host-bound phases ran up to 2.5x slower on one host
+# than on another): phases 3-7 and 10 serve gemma-2b at 9 of its 18
+# layers, phase 6 mamba2-780m at 6 of its 48, phase 11 recurrentgemma-2b
+# at 8 of its 26 ((rec, rec, attn) x 2 + (rec, rec): the plan's groups
+# and its epilogue), phase 12 deepseek-v2-lite-16b at 5 of its 27 (pro_0
+# + 4 moe_ds); phase 9 serves gemma-2b and mamba2-780m at full depth
+EARLY_LAYERS = {"gemma-2b": 9, "mamba2-780m": 6, "recurrentgemma-2b": 8,
+                "deepseek-v2-lite-16b": 5}
 # deepseek-v2-lite-16b's B1 GEMMs (K, N): layer 0's dense MLP, then the
 # shared experts' MLP of every moe_ds layer
 MOE_GEMMS = ((2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048))
 # phase 13's token configs, in the order they serve (one config's weights
 # resident at a time), at their published widths: arctic-480b at 2 of its
 # 35 layers (the most whose weights fit: 55.4 GB), llama3-405b at 4 of
-# 126 (33.9 GB), minicpm-2b at all 40 (5.45 GB)
-LATE_LAYERS = {"arctic-480b": 2, "llama3-405b": 4, "minicpm-2b": 40}
+# 126 (33.9 GB), minicpm-2b at 20 of 40 (for the script's time, as
+# EARLY_LAYERS)
+LATE_LAYERS = {"arctic-480b": 2, "llama3-405b": 4, "minicpm-2b": 20}
 # their B1 GEMMs (K, N): arctic's dense residual, llama3's and minicpm's
 # MLP, each gate/up then down
 LATE_GEMMS = {"arctic-480b": ((7168, 4864), (4864, 7168)),
@@ -326,6 +360,22 @@ LATE_GEMMS = {"arctic-480b": ((7168, 4864), (4864, 7168)),
 # and 1
 LATE_HEADS = {"arctic-480b": (56, 8, 128), "llama3-405b": (128, 8, 128),
               "minicpm-2b": (36, 36, 64)}
+# phase 14's frontend configs, in the order they serve, at their published
+# widths and full depth: qwen2-vl-2b (28 layers, 3.09 GB) and
+# musicgen-large (48 layers, 4.85 GB)
+FRONT_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+# their B1 GEMMs (K, N): qwen2-vl-2b's gated MLP (K 8960: 140 tiles of 64,
+# uneven across a cluster of 8), musicgen-large's plain gelu MLP (two
+# GEMMs a layer, the biases added outside the kernel)
+FRONT_GEMMS = {"qwen2-vl-2b": ((1536, 8960), (8960, 1536)),
+               "musicgen-large": ((2048, 8192), (8192, 2048))}
+# their attention (query heads, KV heads, head_dim): a KV group of 6 (a
+# 16-token chunk is 96 rows: a 64-row tile splits position 10's heads)
+# and MHA at D 64
+FRONT_HEADS = {"qwen2-vl-2b": (12, 2, 128), "musicgen-large": (32, 32, 64)}
+# the shapes phases 2 and 8 hold and time for phases 13 and 14
+CONFIG_GEMMS = {**LATE_GEMMS, **FRONT_GEMMS}
+CONFIG_HEADS = {**LATE_HEADS, **FRONT_HEADS}
 
 
 class SmokeFailure(RuntimeError):
@@ -476,11 +526,12 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     # phase 13's GEMMs (arctic's dense residual 7168 <-> 4864: 112 and 76
     # K tiles; llama3's 16384 <-> 53248: 416 N tiles of 128, 832 K tiles
     # of 64, 1.745 GB a weight; minicpm's 2304 <-> 5760: 36 and 90 K
-    # tiles, uneven across a cluster of 8) at a step's, a chunk's and a
-    # verify's M
+    # tiles, uneven across a cluster of 8) and phase 14's (qwen2-vl-2b's
+    # 1536 <-> 8960, musicgen-large's 2048 <-> 8192) at a step's, a
+    # chunk's and a verify's M
     shapes += [(m, k, n) for m in (BATCH_SLOTS, 16,
                                    BATCH_SLOTS * (SPEC_DEPTH + 1))
-               for gemms in LATE_GEMMS.values() for k, n in gemms]
+               for gemms in CONFIG_GEMMS.values() for k, n in gemms]
     shapes += [(4, 16576, 2048), (16, 16400, 2048)]
     shapes += [(37, 300, 129), (3, 2056, 72), (129, 65, 1000)]   # ragged
     n_checks = n_ref = 0
@@ -536,9 +587,12 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
     plain_only = len(cases)
     # phase 13's groups (arctic G 7 at D 128: a 64-row tile splits a
     # query position's heads; llama3 G 16: a chunk is 256 rows, 4 tiles;
-    # minicpm G 1 at D 64 over 36 KV heads: one row a decode block):
-    # decode at positions 0 and 511, 16-token chunks and a verify
-    for arch, (h, kh, d) in LATE_HEADS.items():
+    # minicpm G 1 at D 64 over 36 KV heads: one row a decode block) and
+    # phase 14's (qwen2-vl-2b G 6 at D 128: a chunk's 96 rows make two
+    # 64-row tiles, position 10 split across them; musicgen-large G 1 at
+    # D 64 over 32 KV heads): decode at positions 0 and 511, 16-token
+    # chunks and a verify
+    for arch, (h, kh, d) in CONFIG_HEADS.items():
         cases += [
             (f"{arch} decode", 4, 1, h, kh, d, [0, 100, 300, 511],
              [1, 101, 301, 512]),
@@ -554,7 +608,7 @@ def check_kernels(dev, gen, report, b2_ref=None) -> dict:
                         device=dev).bfloat16()
         off = torch.tensor(offs, device=dev)
         kvl = torch.tensor(kvls, device=dev)
-        # phase 13's configs have no window and no softcap
+        # phases 13 and 14's configs have no window and no softcap
         for window, softcap in ((None, None), (64, 50.0))[
                 :2 if i < plain_only else 1]:
             want = attention_ref(q, kk, v, offset=off, kv_valid_len=kvl,
@@ -780,10 +834,11 @@ def check_paged(dev, gen, report) -> float:
     kvls["verify past the slot"] = [73, MAX_LEN + 3, 265, MAX_LEN + 4]
     cases += [(8, 1, 256, ps, 4, name, None, None, 5) for ps in (8, 16)
               for name in ("verify", "verify past the slot")]
-    # phase 13's groups (7, 16 and 1) on pages of 16: decode steps over
-    # ragged rows and verifies (llama3's 5 x 16 = 80 rows: two row tiles)
+    # phase 13's groups (7, 16 and 1) and phase 14's (6 and 1) on pages of
+    # 16: decode steps over ragged rows and verifies (llama3's 5 x 16 = 80
+    # rows: two row tiles; qwen2-vl-2b's 30)
     cases += [(h, kh, d, PAGE_SIZE, 4, name, None, None, sq)
-              for h, kh, d in LATE_HEADS.values()
+              for h, kh, d in CONFIG_HEADS.values()
               for name, sq in (("ragged", 1), ("verify", 5),
                                ("verify past the slot", 5))]
     worst = worst_dense = 0.0
@@ -1085,12 +1140,19 @@ def serve(cfg, params, prompts, dev, report, counters, expected, *,
     return engine, out
 
 
+def mlp_gemms(cfg) -> int:
+    """B1 launches of one layer's MLP: gate, up and down for a gated
+    activation, up and down for the plain gelu MLP (musicgen-large)."""
+    return 3 if cfg.activation in ("swiglu", "geglu") else 2
+
+
 def dense_launches(cfg):
     """Every forward pass (a decode step or a prefill chunk) runs each
-    layer's three MLP GEMMs and its attention through the kernels."""
+    layer's MLP GEMMs (``mlp_gemms``) and its attention through the
+    kernels."""
     def expected(decode_steps, chunks):
         passes = decode_steps + len(chunks)
-        per = {"block_matmul": 3 * cfg.num_layers,
+        per = {"block_matmul": mlp_gemms(cfg) * cfg.num_layers,
                "flash_attention": cfg.num_layers}
         return ({k: v * passes for k, v in per.items()},
                 {k: f"{v} per forward pass x {passes} passes = "
@@ -1103,13 +1165,14 @@ def paged_launches(cfg):
     """A paged engine prefills into a dense row (the dense attention
     kernel, once per layer and chunk) and decodes through the page table
     (the paged kernel, once per layer and step); every forward pass runs
-    the three MLP GEMMs of each layer."""
+    the MLP GEMMs of each layer (``mlp_gemms``)."""
     def expected(decode_steps, chunks):
         n, passes = cfg.num_layers, decode_steps + len(chunks)
-        return ({"block_matmul": 3 * n * passes,
+        g = mlp_gemms(cfg)
+        return ({"block_matmul": g * n * passes,
                  "flash_attention": n * len(chunks),
                  "flash_attention_paged": n * decode_steps},
-                {"block_matmul": f"{3 * n} per forward pass x {passes} "
+                {"block_matmul": f"{g * n} per forward pass x {passes} "
                  f"passes = {decode_steps} decode steps + {len(chunks)} "
                  "prefill chunks",
                  "flash_attention": f"{n} per prefill chunk x "
@@ -1899,18 +1962,19 @@ def timings(dev, gen, report) -> list[dict]:
                                     "shared gate/up", "shared down"),
                                    MOE_GEMMS)),
                              *((f"{arch} {what} {gemm}", (m, k, n))
-                               for arch, gemms in LATE_GEMMS.items()
+                               for arch, gemms in CONFIG_GEMMS.items()
                                for what, m in (("decode", BATCH_SLOTS),
                                                ("prefill-chunk", 16),
                                                ("verify", verify_m))
-                               for gemm, (k, n) in zip(("gate/up", "down"),
-                                                       gemms))):
+                               for gemm, (k, n) in zip(
+                                   ("up" if arch == "musicgen-large"
+                                    else "gate/up", "down"), gemms))):
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(k, n, generator=gen, device=dev)
              * k ** -0.5).bfloat16()
-        # phase 13's shapes at the level-0 tile only, for the script's
-        # time (each timing holds the stream for ~0.1 s first)
-        late = label.split()[0] in LATE_GEMMS
+        # phases 13 and 14's shapes at the level-0 tile only, for the
+        # script's time (each timing holds the stream for ~0.1 s first)
+        late = label.split()[0] in CONFIG_GEMMS
         levels = H100_LEVEL_TILES[:1] if late else H100_LEVEL_TILES
         per_level = [cold_ms(lambda t=t: bm.block_matmul_2d(
             x, w, **t["matmul"]), 20, flush) for t in levels]
@@ -1952,8 +2016,9 @@ def timings(dev, gen, report) -> list[dict]:
                                                      for g in geometry)))
     # flash_attention: decode over the serve's positions, a prefill chunk
     # and a speculative verify pass (d + 1 = 5 queries per row), at
-    # gemma-2b's heads (8 over 1 at D 256) and at phase 13's (KV groups of
-    # 7, 16 and 1); the bound counts the keys this data makes visible.
+    # gemma-2b's heads (8 over 1 at D 256), at phase 13's (KV groups of
+    # 7, 16 and 1) and at phase 14's (6 and 1); the bound counts the keys
+    # this data makes visible.
     # SDPA reads K/V expanded to every query head (a view for one KV
     # head, a copy made before the timing for more)
     shapes = [(label, b, s, offs, 8, 1, 256, "")
@@ -1961,7 +2026,7 @@ def timings(dev, gen, report) -> list[dict]:
                                         ("prefill chunk", 1, 16, [240]),
                                         ("verify", 4, 5, [68, 140, 260, 300]))]
     shapes += [(f"{arch} {label}", b, s, offs, h, kh, d, arch)
-               for arch, (h, kh, d) in LATE_HEADS.items()
+               for arch, (h, kh, d) in CONFIG_HEADS.items()
                for label, b, s, offs in (
                    ("decode", 4, 1, [68, 140, 260, 300]),
                    ("prefill chunk", 1, 16, [240]),
@@ -1973,7 +2038,7 @@ def timings(dev, gen, report) -> list[dict]:
         v = torch.randn(b, t, kh, d, generator=gen, device=dev).bfloat16()
         off = torch.tensor(offs, device=dev)
         kvl = off + s
-        # phase 13's heads at the level-0 tile only, as for B1
+        # phases 13 and 14's heads at the level-0 tile only, as for B1
         levels = H100_LEVEL_TILES[:1] if arch else H100_LEVEL_TILES
         per_level = [cold_ms(lambda a=tl["attention"]: fa.flash_attention(
             q, kk, v, offset=off, kv_valid_len=kvl, **a), 20, flush)
@@ -2107,7 +2172,8 @@ def paged_timings(dev, gen, report) -> list[dict]:
     a page table).  Then the same at rows of one 64-key tile each, which
     separates the kernel's cost per tile from its fixed cost, and a
     speculative verify pass (five queries per row); then decode steps and
-    verifies at phase 13's heads (KV groups of 7, 16 and 1)."""
+    verifies at phase 13's heads (KV groups of 7, 16 and 1) and phase
+    14's (6 and 1)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention_paged as fap
@@ -2125,10 +2191,10 @@ def paged_timings(dev, gen, report) -> list[dict]:
                                      ("decode, one tile per row", [63] * 4,
                                       1),
                                      ("verify", [68, 140, 260, 300], 5))]
-    # phase 13's groups: decode steps and verifies (llama3's 80 rows a
-    # verify: two row tiles)
+    # phase 13's and phase 14's groups: decode steps and verifies
+    # (llama3's 80 rows a verify: two row tiles)
     shapes += [(f"{arch} {label}", [68, 140, 260, 300], s, h, kh, d)
-               for arch, (h, kh, d) in LATE_HEADS.items()
+               for arch, (h, kh, d) in CONFIG_HEADS.items()
                for label, s in (("decode", 1), ("verify", 5))]
     for label, offs, s, h, kh, d in shapes:
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
@@ -3705,10 +3771,11 @@ def spec_expected(kind: str, cfg, out) -> dict:
         return {"ssd_scan": n * (2 * v + sum(c >= 2 for c in out["chunks"]))}
     passes = v + steps + chunks
     if kind == "paged":
-        return {"block_matmul": 3 * n * passes,
+        return {"block_matmul": mlp_gemms(cfg) * n * passes,
                 "flash_attention": n * chunks,
                 "flash_attention_paged": n * (v + steps)}
-    return {"block_matmul": 3 * n * passes, "flash_attention": n * passes}
+    return {"block_matmul": mlp_gemms(cfg) * n * passes,
+            "flash_attention": n * passes}
 
 
 def spec_profile(what, engine, plain, prompts, groups, report) -> dict:
@@ -4611,7 +4678,7 @@ def serve_hybrid(dev, counters, report, seed) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 12: the moe family, deepseek-v2-lite-16b (MLA latent cache, capacity
 # MoE with 64 routed and 2 shared experts, a dense first layer) at its
-# published widths and 9 of its 27 layers (EARLY_LAYERS: pro_0 and 8
+# published widths and 5 of its 27 layers (EARLY_LAYERS: pro_0 and 4
 # moe_ds blocks)
 MOE = "deepseek-v2-lite-16b"
 # the whole-model check: where the kernels' and the plain path's logits
@@ -4628,7 +4695,7 @@ def moe_launches(cfg, monolithic: int = 0):
     """Every forward pass (a decode step, a prefill chunk, a monolithic
     prefill, a verify) runs the three MLP GEMMs of each dense layer
     (``ds_dense0``) and of each ``moe_ds`` block's shared experts through
-    B1: 27 a pass at deepseek-v2-lite-16b's 9 layers (81 at all 27; and
+    B1: 15 a pass at deepseek-v2-lite-16b's 5 layers (81 at all 27; and
     at its MoE-free clone's).  MLA runs in plain ops (no B2; no B3 on a paged cache,
     where the latents are gathered through the page table), the routed
     experts in PyTorch products, and B4 never.  ``monolithic``: the
@@ -5133,7 +5200,7 @@ def serve_moe(dev, counters, report, seed) -> dict:
 # llama3-405b, minicpm-2b) at their published widths
 LATE_ARCHS = ("arctic-480b", "llama3-405b", "minicpm-2b")
 # the levels phase 13's serves cycle (0/9, two versions: at 0/5/9 the
-# script ran past the 1,080 s it aims at, minicpm-2b's 40 layers paying
+# script ran past the 1,080 s it aimed at, minicpm-2b's 40 layers paying
 # for each version in capture and eager warmup) and the one level of its
 # single-version serves
 LATE_LEVELS = (0, 9)
@@ -5165,21 +5232,26 @@ def late_spec_launches(kind: str, cfg, run) -> dict:
              "ssd_scan")}
 
 
-def late_spec_paged(cfg, params, dev, report, counters, seed) -> dict:
-    """llama3-405b's speculative serve on a paged engine: constant-token
-    prompts (SPEC_REP_LENS) on a plain and a speculative paged engine,
-    graphed at one level; where the n-gram drafts never roll back, the
-    speculative engine drafts the last token's copies and serves again.
-    Streams equal the plain engine's or part at two-ulp ties; verifies
-    and rollbacks above 0; exact launches (B3 once a layer a verify: 80
-    rows, two row tiles); the pool empty after."""
+def late_spec_paged(cfg, params, dev, report, counters, seed, *,
+                    plain=None) -> dict:
+    """A speculative serve on a paged engine (llama3-405b in phase 13,
+    musicgen-large in phase 14): constant-token prompts (SPEC_REP_LENS) on
+    a plain and a speculative paged engine, graphed at one level (the
+    plain one ``plain``, warm at LATE_ONE and SPEC_BUCKETS, or built
+    here); where the n-gram drafts never roll back, the speculative
+    engine drafts the last token's copies and serves again, and where
+    those never roll back either, tokens the model does not pick.  Streams
+    equal the plain engine's or part at two-ulp ties; verifies and
+    rollbacks above 0; exact launches (B3 once a layer a verify: at
+    llama3-405b's G 16, 80 rows, two row tiles); the pool empty after."""
     import numpy as np
     rng = np.random.default_rng(seed + 13)
     rep = [np.full(n, int(rng.integers(cfg.vocab_size)), np.int32)
            for n in SPEC_REP_LENS]
     paged = {"page_size": PAGE_SIZE}
-    plain = spec_engine(cfg, params, dev, report, speculative=False,
-                        levels=LATE_ONE, **paged)
+    if plain is None:
+        plain = spec_engine(cfg, params, dev, report, speculative=False,
+                            levels=LATE_ONE, **paged)
     want = spec_serve(plain, rep, MAX_NEW, counters, levels=LATE_ONE)
     del plain
     spec = spec_engine(cfg, params, dev, report, levels=LATE_ONE, **paged)
@@ -5190,6 +5262,15 @@ def late_spec_paged(cfg, params, dev, report, counters, seed) -> dict:
                f" verifies, {run['spec_stats']['spec_rollbacks']} rollbacks;"
                " serving again with drafts of the last token's copies")
         spec.drafter, drafter = AlwaysDraft(), "last token's copies"
+        run = spec_serve(spec, rep, MAX_NEW, counters, levels=LATE_ONE)
+    if run["spec_stats"]["spec_rollbacks"] == 0:
+        # the model's stream repeats the prompt's token, so its copies are
+        # all accepted: draft tokens it does not pick, as phase 10 does
+        report(f"spec {cfg.name} paged: drafts of the last token's copies "
+               f"gave {run['verifies']} verifies, no rollback; serving "
+               "again with drafts the model does not pick")
+        spec.drafter = RejectedDraft(cfg.vocab_size)
+        drafter = "tokens the model does not pick"
         run = spec_serve(spec, rep, MAX_NEW, counters, levels=LATE_ONE)
     stats = spec.page_stats
     del spec
@@ -5408,6 +5489,340 @@ def serve_late(dev, counters, report, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the frontends (qwen2-vl-2b: M-RoPE over patch embeddings;
+# musicgen-large: sinusoidal positions over frame embeddings) at their
+# published widths and full depth
+FRONT_PROMPT = 256        # patches (a 16 x 16 grid) or frames a row
+FRONT_GRID = 16           # the grid's width: h = i // FRONT_GRID
+FRONT_ROWS = 2
+FRONT_CHUNK = 16
+FRONT_STEPS = 8           # decode steps after the embedding prompt
+
+
+def front_positions(n, rows, dev):
+    """(3, rows, n) M-RoPE positions of an image grid FRONT_GRID wide: t
+    0, h i // FRONT_GRID, w i.  The w row is row-contiguous: the reference
+    masks and offsets attention by it (ROADMAP queue C), so the kernels
+    and the plain versions agree only there."""
+    import torch
+    i = torch.arange(n, device=dev)
+    rows3 = torch.stack([torch.zeros_like(i), i // FRONT_GRID, i])
+    return rows3[:, None, :].expand(3, rows, n).contiguous()
+
+
+def front_step_inputs(cfg, logits, dev, seed, j):
+    """The j-th decode step's input: qwen2-vl-2b decodes text tokens (the
+    greedy token), musicgen-large frame embeddings (``make_sample_inputs``
+    of a decode step)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.frontends import make_sample_inputs
+    if cfg.frontend == "frames":
+        return make_sample_inputs(
+            cfg, ShapeConfig("step", 1, FRONT_ROWS, "decode"), device=dev,
+            seed=seed + 100 + j)
+    return {"tokens": logits.argmax(dim=-1)}
+
+
+def logits_drift(what, got, want, report) -> dict:
+    """``got`` against ``want``: the largest difference within LOGIT_RTOL
+    of the largest logit, and the same greedy tokens."""
+    import torch
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    same_top = bool((got.argmax(-1) == want.argmax(-1)).all())
+    finite = bool(torch.isfinite(got).all())
+    report(f"{what}: max |difference| {diff:.4g} (max |logit| {scale:.4g}, "
+           f"tolerance {LOGIT_RTOL} x max |logit|), same argmax: "
+           f"{same_top}, finite: {finite}")
+    require(finite and diff <= LOGIT_RTOL * scale and same_top,
+            f"{what}: logits drift {diff:.4g} of {scale:.4g}, same argmax "
+            f"{same_top}, finite {finite}")
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "same_argmax": same_top}
+
+
+def frontend_embedding_path(cfg, params, dev, report, seed) -> dict:
+    """The embedding path through the model's entry points, eagerly:
+    ``make_sample_inputs`` patch or frame embeddings, FRONT_ROWS rows of
+    FRONT_PROMPT (qwen2-vl-2b with ``front_positions``), prefilled at
+    once and in FRONT_CHUNK-position ``prefill_chunk`` calls, which must
+    agree; FRONT_STEPS decode steps from the monolithic cache; the
+    prefill and the first step through the plain versions too, within
+    LOGIT_RTOL (the whole-model check)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.frontends import make_sample_inputs
+    from repro_torch.models.model import Model
+
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    inputs = make_sample_inputs(
+        cfg, ShapeConfig("phase 14", FRONT_PROMPT, FRONT_ROWS, "prefill"),
+        device=dev, seed=seed + 14)
+    if cfg.pos_embed == "mrope":
+        inputs["positions"] = front_positions(FRONT_PROMPT, FRONT_ROWS, dev)
+    out: dict = {"rows": FRONT_ROWS, "prompt": FRONT_PROMPT}
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    cache = kern.init_cache(FRONT_ROWS, MAX_LEN, dev)
+    (mono, _), out["prefill_ms"] = timed_call(
+        lambda: kern.prefill(params, inputs, cache))
+    chunked = kern.init_cache(FRONT_ROWS, MAX_LEN, dev)
+
+    def chunks():
+        for c in range(0, FRONT_PROMPT, FRONT_CHUNK):
+            part = {k: (v[..., c:c + FRONT_CHUNK] if k == "positions"
+                        else v[:, c:c + FRONT_CHUNK])
+                    for k, v in inputs.items()}
+            lg, _ = kern.prefill_chunk(params, part, chunked, c,
+                                       FRONT_CHUNK)
+        return lg
+    last, out["chunks_ms"] = timed_call(chunks)
+    what = f"{cfg.name} {FRONT_ROWS} x {FRONT_PROMPT} {cfg.frontend} embeds"
+    out["chunked_vs_monolithic"] = logits_drift(
+        f"{what}: {FRONT_PROMPT // FRONT_CHUNK} chunks of {FRONT_CHUNK} "
+        "against one prefill (kernels)", last, mono, report)
+    plain_cache = plain.init_cache(FRONT_ROWS, MAX_LEN, dev)
+    plain_lg, _ = plain.prefill(params, inputs, plain_cache)
+    out["prefill_vs_plain"] = logits_drift(
+        f"whole model {what}: prefill through the kernels against the "
+        "plain versions", mono, plain_lg, report)
+    logits, steps_ms, kinds = mono, [], []
+    for j in range(FRONT_STEPS):
+        step_in = front_step_inputs(cfg, logits, dev, seed, j)
+        kinds.append(next(iter(step_in)))
+        pos = torch.full((FRONT_ROWS,), FRONT_PROMPT + j, device=dev)
+        (logits, _), ms = timed_call(lambda: kern.decode_step(
+            params, step_in, cache, pos))
+        steps_ms.append(ms)
+        require(logits.shape == (FRONT_ROWS, cfg.vocab_size) and
+                bool(torch.isfinite(logits).all()),
+                f"{what}: decode step {j} logits {tuple(logits.shape)}, "
+                "not all finite")
+        if j == 0:
+            want, _ = plain.decode_step(params, step_in, plain_cache, pos)
+            out["step_vs_plain"] = logits_drift(
+                f"whole model {what}: a decode step on {kinds[0]} through "
+                "the kernels against the plain versions", logits, want,
+                report)
+    out["steps_ms"] = steps_ms
+    report(f"{what}: eager prefill {out['prefill_ms']:.1f} ms, "
+           f"{FRONT_PROMPT // FRONT_CHUNK} chunks {out['chunks_ms']:.1f} ms,"
+           f" {FRONT_STEPS} decode steps on {kinds[0]} "
+           f"{sum(steps_ms):.1f} ms (median "
+           f"{statistics.median(steps_ms):.1f} ms a step), logits finite")
+    return out
+
+
+def eager_against_graphed(cfg, params, graphed, prompts, dev, report,
+                          counters) -> dict:
+    """One prefill chunk a request and one 8-step quantum on an eager
+    engine (no warmup) and on the warm graphed engine: BATCH_SLOTS
+    requests of at most 16 tokens, prefilled at level 0, then one quantum
+    at the last of LATE_LEVELS.  Streams and launches equal, each as
+    ``late_launches`` counts them; the graphed engine captures nothing."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    eager = ServingEngine(cfg, params, batch_slots=BATCH_SLOTS,
+                          max_len=MAX_LEN, device=dev, cuda_graphs=False)
+    expected = late_launches(cfg)
+    builds0 = graphed.version_cache.traces
+    runs = {}
+    for what, eng in (("eager", eager), ("graphed", graphed)):
+        require(eng.active_slots == 0, f"{cfg.name} {what}: not idle")
+        reqs = [Request(rid=200 + i, prompt=p[:16], max_new_tokens=QUANTUM)
+                for i, p in enumerate(prompts[:BATCH_SLOTS])]
+        eng.set_interference_level(cm.grid_point(0))
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.clear()
+        chunks = []
+        for r in reqs:
+            require(eng.admit_request(r), f"{cfg.name} {what}: no slot")
+        while eng.prefill_pending:
+            chunks.append(eng.prefill_step().chunk)
+        eng.set_interference_level(cm.grid_point(LATE_LEVELS[-1]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.finish_quantum(eng.begin_quantum(QUANTUM))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {n: sum(c.values()) for n, c in counters.items()}
+        want, why = expected(QUANTUM, chunks)
+        require(launches == want, f"{cfg.name} {what} chunk and quantum: "
+                f"launches {launches}, expected {want} ({why})")
+        require(all(r.done and len(r.output) == QUANTUM + 1 for r in reqs),
+                f"{cfg.name} {what}: the quantum left requests unfinished")
+        runs[what] = {"streams": [list(r.output) for r in reqs],
+                      "launches": launches, "chunks": chunks,
+                      "quantum_ms": ms}
+    require(graphed.version_cache.traces == builds0,
+            f"{cfg.name}: the graphed engine built a version after warmup")
+    same = sum(a == b for a, b in zip(runs["graphed"]["streams"],
+                                      runs["eager"]["streams"]))
+    require(runs["graphed"]["streams"] == runs["eager"]["streams"],
+            f"{cfg.name}: {same} of {BATCH_SLOTS} graphed streams equal the "
+            "eager ones")
+    report(f"{cfg.name}: eager and graphed engines, {len(runs['eager']['chunks'])}"
+           f" prefill chunks at level 0 and one {QUANTUM}-step quantum at "
+           f"level {LATE_LEVELS[-1]}: {same} of {BATCH_SLOTS} streams equal, "
+           f"launches equal ({runs['graphed']['launches']}, exact); the "
+           f"quantum {runs['eager']['quantum_ms']:.1f} ms eager, "
+           f"{runs['graphed']['quantum_ms']:.2f} ms graphed")
+    del eager
+    return runs
+
+
+def serve_frontend_config(arch, dev, counters, report, seed) -> dict:
+    """One config of phase 14 (see the module docstring).  Each check that
+    fails is reported and the config goes on with the checks that do not
+    depend on it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import param_count
+
+    t_arch = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = param_count(model.param_specs())
+    require(n_params == sum(a.numel() for a in _leaves(params)),
+            f"{arch}: param_count disagrees with the tree made")
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    require(FRONT_HEADS[arch] == (h, kh, d) and FRONT_GEMMS[arch][0] ==
+            (cfg.d_model, cfg.d_ff), f"{arch}: phases 2 and 8 hold other "
+            f"shapes than the config's")
+    pos = (f"M-RoPE sections {cfg.mrope_sections}, theta {cfg.rope_theta:g}"
+           if cfg.pos_embed == "mrope" else f"{cfg.pos_embed} positions")
+    report(f"{arch}: all {cfg.num_layers} layers, d_model {cfg.d_model}, "
+           f"{h} heads over {kh} KV heads of {d} (G {h // kh}), "
+           f"{cfg.activation} MLP of {cfg.d_ff}, {cfg.norm_type}, {pos}, "
+           f"vocab {cfg.vocab_size}{', tied' if cfg.tie_embeddings else ''}"
+           f", {cfg.frontend} frontend: {n_params / 1e9:.3f} B parameters "
+           f"({n_params * 2 / 1e9:.2f} GB) made on the card in "
+           f"{time.perf_counter() - t0:.1f} s (peak device memory "
+           f"{init_peak / 2**30:.2f} GiB while they were made)")
+    rng = np.random.default_rng(seed + 14)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    warm = {"levels": [cm.grid_point(i) for i in LATE_LEVELS],
+            "quantum_buckets": SPEC_BUCKETS}
+    warm_one = {"levels": [cm.grid_point(i) for i in LATE_ONE],
+                "quantum_buckets": SPEC_BUCKETS}
+    groups = {"block_matmul": "block_matmul_kernel",
+              "flash_attention": "flash_attention_kernel",
+              "flash_attention_paged": "paged_flash_kernel",
+              "cublas bf16": "nvjet", "cublas fp32": "gemmSN",
+              "cublas other": "gemm", "elementwise": "elementwise_kernel",
+              "reduce": "reduce_kernel", "index": "ndex"}
+    out: dict = {"failures": [], "seconds": {}, "layers": cfg.num_layers,
+                 "params": n_params, "init_peak_bytes": init_peak}
+
+    def attempt(name, fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        except SmokeFailure as e:
+            out["failures"].append(f"{arch} {name}: {e}")
+            report(f"frontends {arch} {name} FAILED: {e}")
+            return None
+        finally:
+            out["seconds"][name] = time.perf_counter() - t
+
+    out["embeddings"] = attempt("embedding path", lambda:
+                                frontend_embedding_path(cfg, params, dev,
+                                                        report, seed))
+    graphed = attempt("graphed serve", lambda: serve(
+        cfg, params, prompts, dev, report, counters, late_launches(cfg),
+        warmup_kw=warm, levels=LATE_LEVELS))
+    engine = graphed[0] if graphed else None
+    if graphed:
+        out["serve"] = graphed[1]
+        out["eager"] = attempt("eager against graphed", lambda:
+                               eager_against_graphed(cfg, params, engine,
+                                                     prompts, dev, report,
+                                                     counters))
+    gc.collect()
+    paged_engine = None
+
+    def paged_serve():
+        nonlocal paged_engine
+        paged_prompts, order = sharing_prompts(prompts, cfg.vocab_size, seed)
+        paged_engine, res = serve(cfg, params, paged_prompts, dev, report,
+                                  counters, late_launches(cfg, paged=True),
+                                  engine_kw={"page_size": PAGE_SIZE},
+                                  after={2: 0, 3: 0}, warmup_kw=warm_one,
+                                  levels=LATE_ONE)
+        check_paged_serve(paged_engine, res, report)
+        if graphed:
+            same = [res["streams"][j] == graphed[1]["streams"][i]
+                    for j, i in enumerate(order) if i is not None]
+            res["streams_equal_to_dense"] = sum(same)
+            report(f"{arch} paged: {sum(same)} of {len(same)} streams equal "
+                   "the dense serve's (not gated: the paged and dense "
+                   "kernels sum in different orders)")
+        return res
+    out["paged"] = attempt("paged serve", paged_serve)
+    if arch == "musicgen-large" and paged_engine is not None:
+        out["spec"] = attempt("paged spec", lambda: late_spec_paged(
+            cfg, params, dev, report, counters, seed, plain=paged_engine))
+    paged_engine = None
+    gc.collect()
+    if engine is not None:
+        # the profile leaves requests resident: last on this engine
+        out["profile_quantum"] = attempt("quantum profile", lambda:
+                                         profile_quantum(engine, prompts,
+                                                         report, groups))
+    del engine, graphed
+    serves = [r["max_memory_allocated"] for r in (
+        out.get("serve"), out.get("paged")) if r]
+    out["serve_peak_bytes"] = max(serves, default=None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_arch
+    report(f"frontends {arch}: {out['s']:.1f} s ("
+           + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items())
+           + f"); peak device memory {init_peak / 2**30:.2f} GiB while the "
+           "weights were made, "
+           + ("not measured" if not serves else
+              f"{max(serves) / 2**30:.2f} GiB")
+           + " in the serves")
+    return out
+
+
+def serve_frontends(dev, counters, report, seed) -> dict:
+    """Phase 14: each config of FRONT_ARCHS in turn; the phase fails at
+    its end if any check did."""
+    t_phase = time.perf_counter()
+    out = {arch: serve_frontend_config(arch, dev, counters, report, seed)
+           for arch in FRONT_ARCHS}
+    failures = [f for arch in FRONT_ARCHS for f in out[arch]["failures"]]
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"frontends: phase 14 took {out['phase_s']:.1f} s ("
+           + ", ".join(f"{a} {out[a]['s']:.1f}" for a in FRONT_ARCHS)
+           + f"); levels {'/'.join(map(str, LATE_LEVELS))}")
+    require(not failures, "phase 14: " + "; ".join(failures))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5568,6 +5983,8 @@ def main() -> int:
     seconds["12 moe"] = moe["phase_s"]
     late = serve_late(dev, all_counters, report, args.seed)
     seconds["13 late"] = late["phase_s"]
+    front = serve_frontends(dev, all_counters, report, args.seed)
+    seconds["14 frontends"] = front["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -5610,6 +6027,19 @@ def main() -> int:
         if "spec" in res:
             late_by.update(res["spec"]["plain_launches"])
             late_by.update(res["spec"]["spec_launches"])
+    # phase 14's serves: each config's graphed chunked and paged serves,
+    # the graphed side of its eager/graphed check, and both sides of
+    # musicgen-large's speculative serve
+    front_by = collections.Counter()
+    for arch in FRONT_ARCHS:
+        res = front[arch]
+        for key in ("serve", "paged"):
+            for name, per_tile in res[key]["launches"].items():
+                front_by[name] += sum(per_tile.values())
+        front_by.update(res["eager"]["graphed"]["launches"])
+        if "spec" in res:
+            front_by.update(res["spec"]["plain_launches"])
+            front_by.update(res["spec"]["spec_launches"])
     kernels = []
     for name, src, replaces, model in (
             ("block_matmul", "src/repro_torch/csrc/block_matmul.cu",
@@ -5631,6 +6061,7 @@ def main() -> int:
             "hybrid_launches": hybrid_launches_by.get(name, 0),
             "moe_launches": moe_launches_by.get(name, 0),
             "late_launches": late_by.get(name, 0),
+            "frontend_launches": front_by.get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -5646,7 +6077,7 @@ def main() -> int:
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
-        "moe": moe, "late": late,
+        "moe": moe, "late": late, "frontends": front,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

@@ -1,7 +1,8 @@
 """Architecture config registry of the PyTorch port.
 
-Holds the configs ported so far: every token-input config of the
-reference's registry (the dense, ssm, hybrid and moe families).
+Holds every config of the reference's registry: the dense, ssm, hybrid
+and moe families, and the two frontend configs (qwen2-vl-2b, ``vlm``;
+musicgen-large, ``audio``), whose backbones run as dense blocks.
 ``get_config(name)`` returns the published config; ``get_reduced_config``
 applies the same reduction rules as ``repro.configs.get_reduced_config``
 (few layers, narrow widths, tiny vocab) for CPU tests; ``get_shape(name)``
@@ -17,15 +18,16 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import arctic_480b, deepseek_v2_lite_16b, \
-    gemma_2b, llama3_405b, mamba2_780m, minicpm_2b, recurrentgemma_2b, \
-    starcoder2_3b
+    gemma_2b, llama3_405b, mamba2_780m, minicpm_2b, musicgen_large, \
+    qwen2_vl_2b, recurrentgemma_2b, starcoder2_3b
 from repro_torch.configs.base import SHAPES, MLAConfig, ModelConfig, \
     MoEConfig, ShapeConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (arctic_480b, deepseek_v2_lite_16b, gemma_2b, llama3_405b,
-              mamba2_780m, minicpm_2b, recurrentgemma_2b, starcoder2_3b)
+              mamba2_780m, minicpm_2b, musicgen_large, qwen2_vl_2b,
+              recurrentgemma_2b, starcoder2_3b)
 }
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
@@ -50,8 +52,9 @@ def get_reduced_config(name: str) -> ModelConfig:
     """Same-family tiny config: narrow dims, tiny vocab.  Attention
     widths shrink for the attention families only; an ssm config keeps
     its zero head fields and shrinks its ``SSMConfig`` instead, a hybrid
-    shrinks its ``RGLRUConfig`` to one (rec, rec, attn) group, and an MoE
-    config keeps 4 experts (top-2) and narrow MLA widths (the reference
+    shrinks its ``RGLRUConfig`` to one (rec, rec, attn) group, an MoE
+    config keeps 4 experts (top-2) and narrow MLA widths, and an M-RoPE
+    config splits its 16 frequency pairs (4, 6, 6) (the reference
     registry's rules)."""
     cfg = get_config(name)
     kw: dict = dict(
@@ -63,6 +66,8 @@ def get_reduced_config(name: str) -> ModelConfig:
     if cfg.family != "ssm":
         kw.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 1,
                   head_dim=32, d_ff=256)
+    if cfg.pos_embed == "mrope":
+        kw["mrope_sections"] = (4, 6, 6)   # half of reduced head_dim = 16
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),

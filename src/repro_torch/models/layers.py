@@ -5,7 +5,7 @@ Conventions, as in the reference:
   x           (B, S, M)    activations, bf16
   q           (B, S, H, D)
   k, v        (B, T, K, D) K = kv heads
-  positions   (B, S) int
+  positions   (B, S) int, or (3, B, S) (t, h, w) for M-RoPE
   norms, rope and the MLP activation run in fp32 and cast back.
 
 The hot-spot ops go through the kernel hooks (``kernels.dispatch``)
@@ -59,22 +59,64 @@ def apply_norm(params: dict, x: torch.Tensor, norm_type: str = "rmsnorm",
 
 
 # --------------------------------------------------------------------------
-# Rotary embeddings (split halves, llama / gemma convention)
+# Rotary embeddings (RoPE and qwen2-vl M-RoPE; split halves, llama / gemma
+# convention) and sinusoidal position encodings
 # --------------------------------------------------------------------------
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions (B, S)."""
+def rotary_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                  mrope_sections: tuple[int, int, int] | None
+                  ) -> torch.Tensor:
+    """-> (B, S, D/2) fp32 angles.  ``positions`` (B, S), or (3, B, S)
+    (t, h, w) with ``mrope_sections``: frequency pairs [0:s0] take the t
+    row, [s0:s0+s1] the h row, the rest the w row."""
+    half = head_dim // 2
+    freq_idx = torch.arange(half, dtype=torch.float32,
+                            device=positions.device)
+    inv_freq = theta ** (-2.0 * freq_idx / head_dim)        # (half,)
+    posf = positions.float()
+    if mrope_sections is None:
+        return posf[..., None] * inv_freq                   # (B, S, half)
+    s0, s1, s2 = mrope_sections
+    if s0 + s1 + s2 != half:
+        raise ValueError(f"M-RoPE sections {mrope_sections} do not split "
+                         f"{half} frequency pairs")
+    _, b, s = posf.shape
+    pos_sel = torch.cat([posf[i:i + 1].expand(n, b, s)
+                         for i, n in enumerate(mrope_sections)])
+    return pos_sel.movedim(0, -1) * inv_freq                # (B, S, half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple[int, int, int] | None = None
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions (B, S), or (3, B, S) with
+    ``mrope_sections``."""
     d = x.shape[-1]
     half = d // 2
-    freq_idx = torch.arange(half, dtype=torch.float32, device=x.device)
-    inv_freq = theta ** (-2.0 * freq_idx / d)
-    ang = positions.float()[..., None] * inv_freq           # (B, S, half)
+    ang = rotary_angles(positions, d, theta, mrope_sections)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         width: int) -> torch.Tensor:
+    """(B, S) -> (B, S, width) fp32 sinusoidal position encoding: sines
+    of the first half of the frequencies, then cosines."""
+    half = width // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# the reference's names, bound without a second ``def``: the repository's
+# static analyzer resolves the reference's calls of them by the function
+# name being unique in the corpus
+_rope_angles = rotary_angles
+sinusoidal_pe = sinusoidal_positions
 
 
 # --------------------------------------------------------------------------
@@ -236,12 +278,16 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     q = torch.einsum("bsm,mhd->bshd", x, params["wq"].to(x.dtype))
     k = torch.einsum("bsm,mkd->bskd", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsm,mkd->bskd", x, params["wv"].to(x.dtype))
-    if cfg.pos_embed == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    mrope = cfg.mrope_sections if cfg.pos_embed == "mrope" else None
+    if cfg.pos_embed in ("rope", "mrope"):
+        q = apply_rope(q, positions, cfg.rope_theta, mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, mrope)
+    # M-RoPE positions (3, B, S): the masks and the kernels' offsets read
+    # the last (w) row, as the reference's do
+    qpos = positions[-1] if positions.ndim == 3 else positions
     q = q.contiguous()
     if cache is None:
-        y = attend(q, k.contiguous(), v.contiguous(), q_positions=positions,
+        y = attend(q, k.contiguous(), v.contiguous(), q_positions=qpos,
                    kv_valid_len=s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
     elif page_table is not None:
@@ -251,18 +297,18 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         kvl = cache_index + s
         if use_kernel_hook:
             y = dispatch.get_paged_attention()(
-                q, ck, cv, page_table=page_table, q_positions=positions,
+                q, ck, cv, page_table=page_table, q_positions=qpos,
                 kv_valid_len=kvl, window=cfg.sliding_window, softcap=None)
         else:
             y = paged_attention_ref(q, ck, cv, page_table,
-                                    offset=positions[..., 0].reshape(-1),
+                                    offset=qpos[..., 0].reshape(-1),
                                     kv_valid_len=kvl,
                                     window=cfg.sliding_window)
         settle()
     else:
         settle = write_rows(cache, {"k": k, "v": v}, cache_index, live=live)
         ck, cv = cache["k"], cache["v"]
-        y = attend(q, ck, cv, q_positions=positions,
+        y = attend(q, ck, cv, q_positions=qpos,
                    kv_valid_len=cache_index + s, window=cfg.sliding_window,
                    use_kernel_hook=use_kernel_hook)
         settle()

@@ -1,5 +1,6 @@
 """Model assembly of the PyTorch port, dense, ssm, hybrid and moe
-families (``repro.models.model``).
+families, and the vlm and audio backbones, planned as dense blocks
+(``repro.models.model``).
 
 Parameters and caches keep the reference's layer plan and its stacked
 leading ``"layers"`` axis (``blocks/dense/...``, ``blocks/ssm/...``; the
@@ -19,9 +20,13 @@ physical page pools addressed through a per-slot ``"page_table"`` that
 rides inside the cache dict; decode steps and quanta read and write
 through it.
 
-Inputs dict: ``{"tokens": (B,S) int}``; decode inputs ``{"tokens": (B,)}``
-with a position ``t`` — a Python int (all rows aligned) or a (B,) tensor
-of per-row positions (continuous batching).
+Inputs dict: ``{"tokens": (B,S) int}`` or ``{"embeds": (B,S,M)}`` (the
+vlm and audio frontends' patch or frame embeddings), with optional
+``"positions"`` (B,S), or (3,B,S) for M-RoPE; decode inputs
+``{"tokens": (B,)}`` or ``{"embeds": (B,M)}`` with a position ``t`` — a
+Python int (all rows aligned) or a (B,) tensor of per-row positions
+(continuous batching).  A sinusoidal config adds its position encoding
+to either input.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
 
 
 # the families the port serves
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 @dataclasses.dataclass
@@ -74,7 +79,9 @@ LayerPlan = TorchLayerPlan
 
 def plan_layers(cfg: ModelConfig) -> LayerPlan:
     """The reference's ``make_plan`` for the families the port serves:
-    dense and ssm stack ``cfg.num_layers`` blocks of the family's kind;
+    ssm stacks ``cfg.num_layers`` ``"ssm"`` blocks, and dense, vlm and
+    audio as many ``"dense"`` blocks (the frontends feed a dense
+    backbone);
     the hybrid repeats its block pattern (``"rec"`` or ``"attn_local"``)
     and unrolls the remainder after the groups; a moe config unrolls its
     first dense layers (``"ds_dense0"``: MLA and a dense MLP) before a
@@ -96,7 +103,9 @@ def plan_layers(cfg: ModelConfig) -> LayerPlan:
         n_groups = cfg.num_layers // len(pat)
         rem = cfg.num_layers - n_groups * len(pat)
         return LayerPlan((), pat, n_groups, pat[:rem])
-    return LayerPlan((), (cfg.family,), cfg.num_layers, ())
+    if cfg.family == "ssm":
+        return LayerPlan((), ("ssm",), cfg.num_layers, ())
+    return LayerPlan((), ("dense",), cfg.num_layers, ())
 
 
 # the reference's name, bound without a second ``def``: the repository's
@@ -219,7 +228,8 @@ def _blank_leaf(path: tuple[str, ...], spec: ParamSpec, device):
 
 
 class TorchModel:
-    """The dense decoder (``family == "dense"``), the attention-free
+    """The dense decoder (``family == "dense"``, and the vlm and audio
+    backbones, which take embeddings as well as tokens), the attention-free
     Mamba-2 stack (``family == "ssm"``), the RG-LRU / local-attention
     hybrid (``family == "hybrid"``) and the capacity MoE (``family ==
     "moe"``): deepseek's MLA with routed and shared experts, or arctic's
@@ -328,11 +338,53 @@ class TorchModel:
     # -- stacks ------------------------------------------------------------
     def _default_positions(self, b: int, s: int, t0, device) -> torch.Tensor:
         """Row-contiguous positions from ``t0``: an int (all rows
-        aligned) or a (B,) tensor of per-row offsets."""
+        aligned) or a (B,) tensor of per-row offsets; an M-RoPE config
+        gets them on all three rows, (3, B, S)."""
         ar = torch.arange(s, device=device)
         if isinstance(t0, torch.Tensor):
-            return t0.to(device=device, dtype=torch.int64)[:, None] + ar
-        return (t0 + ar)[None, :].expand(b, s)
+            pos = t0.to(device=device, dtype=torch.int64)[:, None] + ar
+        else:
+            pos = (t0 + ar)[None, :].expand(b, s)
+        if self.cfg.pos_embed == "mrope":
+            pos = pos[None].expand(3, b, s)
+        return pos
+
+    def _input_activations(self, params, inputs, positions) -> torch.Tensor:
+        """(B, S, M) bf16 activations: ``inputs["embeds"]`` cast to bf16,
+        or the token embedding; a sinusoidal config adds its encoding of
+        the positions (the w row of M-RoPE positions) in bf16."""
+        cfg = self.cfg
+        if "embeds" in inputs:
+            x = inputs["embeds"].to(torch.bfloat16)
+        else:
+            x = L.embed(params["embed"], inputs["tokens"], cfg)
+        if cfg.pos_embed == "sinusoidal":
+            pe = L.sinusoidal_pe(
+                positions if positions.ndim == 2 else positions[-1],
+                cfg.d_model)
+            x = x + pe.to(x.dtype)
+        return x
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    _embed_inputs = _input_activations
+
+    @staticmethod
+    def _batch_len(inputs) -> tuple[int, int, torch.device]:
+        """(B, S, device) of a prompt's ``tokens`` (B, S) or ``embeds``
+        (B, S, M)."""
+        x = inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+        return x.shape[0], x.shape[1], x.device
+
+    def _prompt_positions(self, inputs, positions, t0) -> torch.Tensor:
+        """``positions`` if given, else ``inputs["positions"]``, else
+        row-contiguous from ``t0`` (``_default_positions``)."""
+        if positions is None:
+            positions = inputs.get("positions")
+        if positions is None:
+            b, s, device = self._batch_len(inputs)
+            positions = self._default_positions(b, s, t0, device)
+        return positions
 
     def _plan_blocks(self, params, cache):
         """(kind, block params, block cache or None) in layer order: the
@@ -352,7 +404,7 @@ class TorchModel:
                 cache[f"epi_{i}"] if cache is not None else None)
 
     def _run_blocks(self, params, x, *, positions, cache, t, live=None,
-                    valid_len=None):
+                    valid_len=None, aux=None):
         """``valid_len`` (chunked prefill: a host int or a device scalar;
         a verify: (B,)) reaches the recurrent mixers, for which the tokens
         past it must be exact no-ops, and the hybrid's ring, which takes
@@ -360,7 +412,9 @@ class TorchModel:
         chunk; a padded KV row needs nothing (it stays causally invisible
         until the decode step at its position overwrites it).  A cache
         that holds a ``"page_table"`` routes every layer's KV through
-        it."""
+        it.  ``aux``, a list, receives each MoE layer's load-balance loss
+        in layer order (the serving paths drop it, as the reference's
+        serving does)."""
         cfg = self.cfg
         page_table = cache.get("page_table") if cache is not None else None
         for kind, p, c in self._plan_blocks(params, cache):
@@ -391,9 +445,10 @@ class TorchModel:
             xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
             if kind == "moe_ds":
                 # every row of the call routes, live or not: the routing
-                # group is the reference's; the aux loss is dropped, as
-                # the reference's serving drops it
-                out, _ = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                # group is the reference's
+                out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                if aux is not None:
+                    aux.append(a)
                 if "shared" in p:
                     out = out + L.apply_mlp(p["shared"], xm, cfg.activation,
                                             use_kernel_hook=self.use_kernels)
@@ -404,7 +459,9 @@ class TorchModel:
             if kind == "moe_arctic":
                 # the dense residual beside the routed experts, added in
                 # the reference's order: (x + mlp) + moe, each in bf16
-                moe_out, _ = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                moe_out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+                if aux is not None:
+                    aux.append(a)
                 x = x + mlp_out + moe_out
                 continue
             x = x + mlp_out
@@ -444,21 +501,46 @@ class TorchModel:
         return L.unembed(params["embed"], x, self.cfg)[:, 0]
 
     # -- entry points --------------------------------------------------------
-    def prefill(self, params, inputs, cache):
-        """Process a prompt from position 0, filling ``cache`` in place.
-        -> (last logits (B,V) fp32, cache)."""
-        toks = inputs["tokens"]
-        b, s = toks.shape
-        positions = self._default_positions(b, s, 0, toks.device)
-        x = L.embed(params["embed"], toks, self.cfg)
+    def full_logits(self, params, inputs, *, positions=None):
+        """Full-sequence forward with no cache: ``inputs["tokens"]`` (B,
+        S) or ``inputs["embeds"]`` (B, S, M), positions from
+        ``positions``, ``inputs["positions"]`` or position 0 on.
+        -> (logits (B, S, V) fp32, the MoE layers' summed load-balance
+        loss, a 0-d fp32 tensor: 0 without MoE layers)."""
+        cfg = self.cfg
+        positions = self._prompt_positions(inputs, positions, 0)
+        x = self._input_activations(params, inputs, positions)
+        losses: list = []
+        x = self._run_blocks(params, x, positions=positions, cache=None,
+                             t=0, aux=losses)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in losses:
+            aux = aux + a
+        x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
+        return L.unembed(params["embed"], x, cfg), aux
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    forward = full_logits
+
+    def prefill(self, params, inputs, cache, *, positions=None):
+        """Process a prompt from position 0, filling ``cache`` in place:
+        ``inputs["tokens"]`` (B, S) or ``inputs["embeds"]`` (B, S, M),
+        positions from ``positions``, ``inputs["positions"]`` or
+        row-contiguous from 0.  -> (last logits (B,V) fp32, cache)."""
+        positions = self._prompt_positions(inputs, positions, 0)
+        x = self._input_activations(params, inputs, positions)
         x = self._run_blocks(params, x, positions=positions, cache=cache, t=0)
         return self._logits(params, x[:, -1:]), cache
 
     def prefill_chunk(self, params, inputs, cache,
-                      t0: int | torch.Tensor, valid_len: int | torch.Tensor):
+                      t0: int | torch.Tensor, valid_len: int | torch.Tensor,
+                      *, positions=None):
         """Incremental prefill of one fixed-size chunk at absolute start
-        position ``t0``: ``inputs["tokens"]`` is (B, C) with only the
-        first ``valid_len`` tokens real.  The padded tail writes KV rows
+        position ``t0``: ``inputs["tokens"]`` (B, C) or ``inputs["embeds"]``
+        (B, C, M) with only the first ``valid_len`` entries real, and
+        positions from ``positions``, ``inputs["positions"]`` or
+        row-contiguous from ``t0``.  The padded tail writes KV rows
         that stay causally invisible until the decode step at their
         position overwrites them, leaves the conv, SSD and RG-LRU state
         as of the last real token, and never enters the hybrid's ring, so
@@ -473,13 +555,11 @@ class TorchModel:
         serves every chunk of its size, and the result is bit-identical
         to the host-int call.  -> (logits (B,V) at the last valid token,
         cache)."""
-        toks = inputs["tokens"]
-        b, s = toks.shape
+        b, _, device = self._batch_len(inputs)
         if isinstance(t0, torch.Tensor):
-            t0 = t0.to(device=toks.device,
-                       dtype=torch.int64).reshape(-1).expand(b)
-        positions = self._default_positions(b, s, t0, toks.device)
-        x = L.embed(params["embed"], toks, self.cfg)
+            t0 = t0.to(device=device, dtype=torch.int64).reshape(-1).expand(b)
+        positions = self._prompt_positions(inputs, positions, t0)
+        x = self._input_activations(params, inputs, positions)
         x = self._run_blocks(params, x, positions=positions, cache=cache,
                              t=t0, valid_len=valid_len)
         if isinstance(valid_len, torch.Tensor):
@@ -491,15 +571,20 @@ class TorchModel:
 
     def decode_step(self, params, inputs, cache, t, live=None):
         """One-token decode at absolute position ``t`` (an int or a (B,)
-        tensor).  ``live`` (B,) bool freezes the cache of rows that are
+        tensor) of ``inputs["tokens"]`` (B,) or ``inputs["embeds"]``
+        (B, M).  ``live`` (B,) bool freezes the cache of rows that are
         not live.  A paged cache (one holding a ``"page_table"``, see
         :meth:`init_paged_cache`) reads and writes KV through the table,
         which passes through unchanged (the host owns it).
         -> (logits (B,V) fp32, cache)."""
-        toks = inputs["tokens"]
-        b = toks.shape[0]
-        positions = self._default_positions(b, 1, t, toks.device)
-        x = L.embed(params["embed"], toks.reshape(b, 1), self.cfg)
+        if "tokens" in inputs:
+            step_in = {"tokens": inputs["tokens"].reshape(-1, 1)}
+        else:
+            emb = inputs["embeds"]
+            step_in = {"embeds": emb.reshape(emb.shape[0], 1, -1)}
+        b, _, device = self._batch_len(step_in)
+        positions = self._default_positions(b, 1, t, device)
+        x = self._input_activations(params, step_in, positions)
         x = self._run_blocks(params, x, positions=positions, cache=cache,
                              t=t, live=live)
         return self._logits(params, x), cache
@@ -591,7 +676,7 @@ class TorchModel:
         seq = torch.cat([tokens.to(torch.int64)[:, None],
                          drafts.to(torch.int64)], dim=1)       # (B, d+1)
         positions = self._default_positions(b, s, pos, seq.device)
-        x = L.embed(params["embed"], seq, cfg)
+        x = self._input_activations(params, {"tokens": seq}, positions)
         recurrent = self.has_recurrent_leaves()
         live = (torch.zeros_like(n_left, dtype=torch.bool) if recurrent
                 else n_left > 0)

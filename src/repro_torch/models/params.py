@@ -133,3 +133,22 @@ def init_params(specs: PyTree, generator: torch.Generator,
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
     return out
+
+
+def count_params(specs: PyTree) -> int:
+    """Elements over every :class:`ParamSpec` leaf of ``specs``."""
+    return sum(spec.size for _, spec in tree_leaves_with_path(specs))
+
+
+def count_param_bytes(specs: PyTree) -> int:
+    """Bytes over every :class:`ParamSpec` leaf of ``specs``, at each
+    leaf's dtype."""
+    return sum(spec.size * torch.tensor([], dtype=spec.dtype).element_size()
+               for _, spec in tree_leaves_with_path(specs))
+
+
+# the reference's names, bound without a second ``def``: the repository's
+# static analyzer resolves the reference's calls of them by the function
+# name being unique in the corpus
+param_count = count_params
+param_bytes = count_param_bytes

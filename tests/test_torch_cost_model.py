@@ -228,3 +228,15 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# the frontend configs (vlm and audio families, planned as dense blocks):
+# their layer kinds, profiles and plans
+FRONTEND_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_configs_plans_match_reference(arch):
+    test_late_configs_plans_match_reference(arch)
+    assert t_prof.lm_layer_kinds(get_config(arch)) == \
+        ["dense"] * get_config(arch).num_layers

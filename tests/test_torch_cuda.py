@@ -1132,3 +1132,129 @@ def test_arctic_graphed_engine_serves_the_eager_streams(cuda_device):
         assert got[0] > 0 and got[0] % (3 * n) == 0, got
         assert got[1] == got[0] // 3 and got[2:] == [0, 0], got
     assert results[0] == results[1]
+
+
+# the frontend configs: qwen2-vl-2b's gated MLP (1536 <-> 8960: K 8960 is
+# 140 tiles of 64, uneven across a cluster of 8) and musicgen-large's
+# plain gelu MLP with biases (2048 <-> 8192)
+FRONT_GEMMS = ((1536, 8960), (8960, 1536), (2048, 8192), (8192, 2048))
+# their attention (query heads, KV heads, head_dim): qwen2-vl-2b's G 6
+# (a 16-token chunk is 96 rows: at a 64-row tile position 10's six heads
+# straddle the tile edge) and musicgen-large's MHA, G 1
+FRONT_HEADS = [(12, 2, 128), (32, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(len(H100_LEVEL_TILES)))
+def test_block_matmul_at_the_frontend_configs_shapes(cuda_device, level):
+    """B1 at the four GEMMs at a decode step's, a chunk's and a verify's M
+    under each level's tile, against the plain version and bit for bit
+    across two launches; then musicgen-large's whole MLP (biases added
+    outside the kernel, as ``apply_mlp`` adds them) through the kernel
+    against its plain version."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda_device).manual_seed(60 + level)
+    tiles = H100_LEVEL_TILES[level]["matmul"]
+    for k, n in FRONT_GEMMS:
+        w = (torch.randn(k, n, generator=g, device=cuda_device)
+             * k ** -0.5).bfloat16()
+        for m in (4, 16, 20):
+            x = torch.randn(m, k, generator=g, device=cuda_device).bfloat16()
+            got = bm.block_matmul_2d(x, w, **tiles)
+            torch.testing.assert_close(got.float(),
+                                       matmul_ref(x, w).float(),
+                                       rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            assert torch.equal(got, bm.block_matmul_2d(x, w, **tiles))
+    mlp = {"w_up": (torch.randn(2048, 8192, generator=g, device=cuda_device)
+                    * 2048 ** -0.5).bfloat16(),
+           "b_up": torch.randn(8192, generator=g, device=cuda_device),
+           "w_down": (torch.randn(8192, 2048, generator=g,
+                                  device=cuda_device) * 8192 ** -0.5
+                      ).bfloat16(),
+           "b_down": torch.randn(2048, generator=g, device=cuda_device)}
+    x = torch.randn(4, 5, 2048, generator=g, device=cuda_device).bfloat16()
+    before = bm.launch_count()
+    with dispatch.tile_context({"matmul": tiles}):
+        got = L.apply_mlp(mlp, x, "gelu")
+    assert bm.launch_count() == before + 2
+    want = L.apply_mlp(mlp, x, "gelu", use_kernel_hook=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, len(H100_LEVEL_TILES) - 1])
+@pytest.mark.parametrize("h,kh,d", FRONT_HEADS)
+def test_flash_attention_at_the_frontend_configs_heads(cuda_device, h, kh,
+                                                       d, level):
+    """B2 at G 6 / D 128 and G 1 / D 64: decode rows at positions 0 and
+    511, 16-token chunks (at G 6 two row tiles at level 0, position 10
+    split across them) and a verify of 5 queries a row, against the plain
+    version and bit for bit across two launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(h + kh + level)
+    tiles = H100_LEVEL_TILES[level]["attention"]
+    if (h, kh, level) == (12, 2, 0):
+        (tbq, _), _, _ = fa.launch_geometry(2, 16, h, kh, 512, **tiles)
+        assert tbq == 64 and -(-16 * 6 // tbq) == 2 and 64 % 6 != 0
+    for b, s, offs in ((4, 1, [0, 100, 300, 511]), (2, 16, [32, 240]),
+                       (4, 5, [68, 140, 260, 300])):
+        q = torch.randn(b, s, h, d, generator=g,
+                        device=cuda_device).bfloat16()
+        kk = torch.randn(b, 512, kh, d, generator=g,
+                         device=cuda_device).bfloat16()
+        v = torch.randn(b, 512, kh, d, generator=g,
+                        device=cuda_device).bfloat16()
+        off = torch.tensor(offs, device=cuda_device)
+        kw = dict(offset=off, kv_valid_len=off + s, **tiles)
+        got = fa.flash_attention(q, kk, v, **kw)
+        want = attention_ref(q, kk, v, offset=off, kv_valid_len=off + s)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, fa.flash_attention(q, kk, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kh,d", FRONT_HEADS)
+def test_flash_attention_paged_at_the_frontend_configs_heads(cuda_device, h,
+                                                             kh, d):
+    """B3 at G 6 / D 128 and G 1 / D 64 over shuffled pages of 16: a
+    decode step and a verify of 5 queries a row (30 rows at G 6), against
+    the plain version and bit for bit across two launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(h + kh + 1)
+    kvl = [5, 37, 300, 512]
+    _, kp, vp, table = _paged_inputs(g, cuda_device, 4, kh, 16, kvl, d=d,
+                                     h=h)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+    for s in (1, 5):
+        q = torch.randn(4, s, h, d, generator=g,
+                        device=cuda_device).bfloat16()
+        kw = dict(offset=kvl_t - s, kv_valid_len=kvl_t)
+        got = fap.flash_attention_paged(q, kp, vp, table, **kw)
+        want = paged_attention_ref(q, kp, vp, table, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        assert torch.equal(got, fap.flash_attention_paged(q, kp, vp, table,
+                                                          **kw))
+
+
+@pytest.mark.cuda
+def test_qwen2_vl_graphed_engine_serves_the_eager_streams(cuda_device):
+    """Eager and graphed engines on reduced qwen2-vl-2b (M-RoPE, G 2):
+    identical streams and launch counts, nothing captured after warmup;
+    every forward pass launches B1 3 times and B2 once a layer, B3 and
+    B4 never."""
+    cfg = get_reduced_config("qwen2-vl-2b")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    engines = [ServingEngine(cfg, params, batch_slots=2, max_len=64,
+                             cuda_graphs=graphs) for graphs in (False, True)]
+    for eng in engines:
+        eng.warmup()
+    prompt = np.arange(1, 41, dtype=np.int32) * 7 % cfg.vocab_size
+    prompts = [prompt[:n] for n in (3, 39, 17)]
+    results = [_serve_moe(eng, prompts) for eng in engines]
+    n = cfg.num_layers
+    for _, got in results:
+        assert got[0] > 0 and got[0] % (3 * n) == 0, got
+        assert got[1] == got[0] // 3 and got[2:] == [0, 0], got
+    assert results[0] == results[1]
