@@ -279,7 +279,30 @@ Phases, each fatal on failure:
      where n-gram drafts never roll back, and tokens the model does not
      pick where those never do either); a profiled graphed 8-step
      quantum.  Reported: peak memory per config, the phase's seconds.
-     Failed checks are collected and the phase fails at its end.
+     Failed checks are collected and the phase fails at its end;
+ 15. training, after phase 14's engines are freed: first B1 at the
+     training microbatch's shapes (M = 1024: each MLP GEMM forward, which
+     is also the other GEMM's dX shape, and each dW, Xᵀ @ dY) and B2 over
+     2 rows of 512 tokens, each against its plain version and timed
+     beside ``torch.matmul`` / SDPA and the bound; then gemma-2b at its
+     published widths and all 18 layers (2.506 B parameters, AdamW state
+     made on the card: fp32 master, mu and nu), ``TorchTokenPipeline``
+     zipf batches of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM
+     microbatches, remat "full", the wsd schedule.  Fatal: one microbatch
+     through the kernels and through the plain versions gives every leaf
+     a gradient (none missing or all zero) within TRAIN_GRAD_RTOL
+     relative L2, and the loss within TRAIN_LOSS_RTOL; TRAIN_STEPS
+     steps, a profiled one, then one under remat "none" and one under
+     "dots", each with
+     exact launches (``train_launches``: B1 432 and B2 72 a step under
+     "full", 324 and 36 under "none", 324 and 72 under "dots"; B3 and B4
+     none); the loss of the last "full" step TRAIN_LOSS_DROP below the
+     first's.  Reported: each step's loss, wall and peak memory; step ms,
+     tokens/s and the model-FLOP share of 989 TFLOP/s; the profiled
+     step's device time by kernel group (TRAIN_GROUPS) and idle share;
+     the optimizer's own time an update.  Failed checks are collected
+     and the phase fails at its end.  The ``kernels`` line carries
+     ``train_launches``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -294,6 +317,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -5823,6 +5847,381 @@ def serve_frontends(dev, counters, report, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the training path, gemma-2b at its published widths and all 18
+# layers trained through B1 (forward, remat recompute and both backward
+# products) and B2 (forward and remat recompute; its gradient is the plain
+# version's, as in the reference)
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH = 4             # rows of TRAIN_SEQ tokens a step
+TRAIN_SEQ = 512
+TRAIN_ACCUM = 2             # microbatches a step, 2 rows each
+TRAIN_STEPS = 6             # steps under remat "full", whose loss must fall
+# AdamW's peak rate, reached at the first step (warmup 1): at 1e-3, the
+# launcher's default, the random full-width model's loss rose
+# (``python -m repro_torch.launch.train --arch gemma-2b --steps 3``: 12.94
+# -> 18.83 on an H100); at 1e-4 it fell 12.89 -> 7.40 in six steps
+TRAIN_LR = 1e-4
+# the loss of the last "full" step below the first's by at least this
+# much (nats; 5.49 at TRAIN_LR on an H100)
+TRAIN_LOSS_DROP = 2.0
+# the kernel path against the plain path on one microbatch: each leaf's
+# gradient, relative L2 (largest reading 5.3e-3, blocks/dense/attn/wq,
+# median 2.8e-3 on an H100), and the loss, relative (reading 3.6e-5);
+# about four and fourteen times the readings
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_LOSS_RTOL = 5e-4
+# B1 at the training microbatch's shapes (M = 2 x 512 tokens): each
+# forward GEMM is also the other GEMM's dX shape (dY (M, N) @ Wᵀ), and
+# dW is Xᵀ (K, M) @ dY (M, N)
+TRAIN_B1_SHAPES = (
+    ("gate/up forward, down dX", 1024, 2048, 16384),
+    ("down forward, gate/up dX", 1024, 16384, 2048),
+    ("gate/up dW", 2048, 1024, 16384),
+    ("down dW", 16384, 1024, 2048))
+
+
+# a train step's device time by kernel group (the first substring a
+# kernel's name holds): the port's kernels, cuBLAS's products (the
+# projections, the unembedding and its gradients, the plain attention
+# backward's fp32 products), elementwise passes, reductions, copies
+TRAIN_GROUPS = {"block_matmul": "block_matmul_kernel",
+                "flash_attention": "flash_attention_kernel",
+                "cublas": "gemm", "cublas nvjet": "nvjet",
+                "elementwise": "elementwise_kernel", "reduce": "reduce_kernel",
+                "copies": "Memcpy"}
+
+
+def train_launches(cfg, remat: str, accum: int = TRAIN_ACCUM) -> dict:
+    """Kernel launches of one train step: per microbatch every MLP GEMM
+    once forward, again under remat "full" (saved under "dots"), and twice
+    backward (dX, dW); B2 once a layer forward and again under any remat
+    (its backward runs the plain version's gradient); B3 and B4 never."""
+    gemms = mlp_gemms(cfg) * cfg.num_layers
+    return {"block_matmul": accum * gemms * (3 + (remat == "full")),
+            "flash_attention": accum * cfg.num_layers * (
+                1 + (remat != "none")),
+            "flash_attention_paged": 0, "ssd_scan": 0}
+
+
+def train_kernel_times(dev, gen, report) -> dict:
+    """B1 at the training shapes and B2 over a 512-token microbatch
+    (forward): each against its plain version (and B1 bit for bit across
+    two launches), then timed as the kernel table is (level-0 tiles,
+    CUDA events after an L2 flush) beside one PyTorch call and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref, matmul_ref
+    from repro_torch.serving.engine import H100_LEVEL_TILES
+
+    scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    tiles = H100_LEVEL_TILES[0]
+    out = {"block_matmul": [], "failures": []}
+    for label, m, k, n in TRAIN_B1_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             * k ** -0.5).bfloat16()
+        got = bm.block_matmul_2d(x, w, **tiles["matmul"])
+        err, rel, ok = errors(got, matmul_ref(x, w))
+        same = torch.equal(got, bm.block_matmul_2d(x, w, **tiles["matmul"]))
+        if not (ok and same):
+            out["failures"].append(f"B1 {label}: max abs err {err}, "
+                                   f"bit-equal relaunch {same}")
+        (tbm, tbk, tbn), split, blocks = bm.launch_geometry(
+            m, k, n, **tiles["matmul"])
+        nbytes = (m * k + k * n + m * n) * 2
+        flops = 2 * m * k * n
+        row = {"shape": label, "m": m, "k": k, "n": n, "max_abs_err": err,
+               "ms": cold_ms(lambda: bm.block_matmul_2d(
+                   x, w, **tiles["matmul"]), 20, flush),
+               "plain_ms": cold_ms(lambda: matmul_ref(x, w), 20, flush),
+               "library_ms": cold_ms(lambda: torch.matmul(x, w), 20, flush),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                               flops / BF16_FLOPS) * 1e3,
+               "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                            >= flops / BF16_FLOPS else "operations"),
+               "tile": (tbm, tbk, tbn), "split": split, "blocks": blocks}
+        row["tflops"] = flops / row["ms"] / 1e9
+        out["block_matmul"].append(row)
+        report(f"train time block_matmul {label} ({m}, {k}) @ ({k}, {n}): "
+               f"kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s; "
+               f"tile {row['tile']}, split {split}, {blocks} blocks), plain "
+               f"{row['plain_ms']:.4f} ms, torch.matmul "
+               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+               f"({row['bound_by']}); max abs err {err:.4g} (rel {rel:.3g})")
+    # B2 over a microbatch: 2 rows of 512 tokens from position 0, 8 query
+    # heads over 1 KV head of 256; the bound counts the causal pairs
+    b, s, h, kh, d = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, 8, 1, 256
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    kk = torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16()
+    attn = tiles["attention"]
+    got = fa.flash_attention(q, kk, v, offset=0, kv_valid_len=s, **attn)
+    err, rel, ok = errors(got, attention_ref(q, kk, v, offset=0,
+                                             kv_valid_len=s))
+    if not ok:
+        out["failures"].append(f"B2 at S {s}: max abs err {err}")
+    qt = q.transpose(1, 2)
+    kt, vt = (a.transpose(1, 2).expand(b, h, s, d) for a in (kk, v))
+    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * 2
+    flops = 4 * h * d * b * s * (s + 1) // 2
+    (tbq, tbkv), split, blocks = fa.launch_geometry(b, s, h, kh, s, **attn)
+    row = {"b": b, "s": s, "h": h, "kh": kh, "d": d, "max_abs_err": err,
+           "ms": cold_ms(lambda: fa.flash_attention(
+               q, kk, v, offset=0, kv_valid_len=s, **attn), 20, flush),
+           "plain_ms": cold_ms(lambda: attention_ref(
+               q, kk, v, offset=0, kv_valid_len=s), 20, flush),
+           "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True), 20, flush),
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                           flops / BF16_FLOPS) * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / BF16_FLOPS else "operations"),
+           "block": (tbq, tbkv), "split": split, "blocks": blocks}
+    out["flash_attention"] = row
+    report(f"train time flash_attention B={b} S={s} H={h} KV={kh} D={d} "
+           f"causal from 0: kernel {row['ms']:.4f} ms (block {row['block']}, "
+           f"split {split}, {blocks} blocks), plain {row['plain_ms']:.4f} "
+           f"ms, sdpa {row['library_ms']:.4f} ms, bound "
+           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err "
+           f"{err:.4g}")
+    del scratch
+    return out
+
+
+def train_grad_check(model, plain, state, batch, report) -> dict:
+    """One microbatch through the kernels and through the plain versions
+    (the same master, remat "full"): the loss and every leaf's gradient,
+    none of which may be missing or all zeros."""
+    import torch
+    from repro_torch.models.params import path_str, tree_leaves_with_path
+    from repro_torch.training.train_step import cast_params
+
+    master = state["opt"]["master"]
+    leaves = list(tree_leaves_with_path(master))
+    specs = model.param_specs()
+    mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    out, grads = {}, {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        loss, _ = m.loss(cast_params(master, specs), mb, remat="full")
+        loss.backward()
+        out[f"{name}_loss"] = float(loss.detach())
+        grads[name] = {}
+        for p, leaf in leaves:
+            g = leaf.grad
+            require(g is not None and bool(g.ne(0).any()),
+                    f"phase 15: the {name} path gives {path_str(p)} "
+                    f"{'no' if g is None else 'an all-zero'} gradient")
+            grads[name][p] = g
+            leaf.grad = None
+    rel = {}
+    for p, _ in leaves:
+        gk, gp = grads["kernels"][p], grads["plain"][p]
+        rel[path_str(p)] = float((gk - gp).norm() / gp.norm())
+    out["grad_rel_l2"] = rel
+    out["loss_rel"] = abs(out["kernels_loss"] - out["plain_loss"]) / \
+        abs(out["plain_loss"])
+    worst = max(rel, key=rel.get)
+    out["worst_leaf"], out["worst"] = worst, rel[worst]
+    report(f"train grads, kernels against plain versions on one microbatch "
+           f"(2 x {TRAIN_SEQ} tokens, remat full): loss "
+           f"{out['kernels_loss']:.6f} / {out['plain_loss']:.6f} (relative "
+           f"{out['loss_rel']:.3e}); per-leaf relative L2 largest "
+           f"{out['worst']:.3e} ({worst}), median "
+           f"{statistics.median(rel.values()):.3e} over {len(rel)} leaves; "
+           f"tolerances {TRAIN_GRAD_RTOL} (grads), {TRAIN_LOSS_RTOL} "
+           "(loss)")
+    return out
+
+
+def train_gemma(dev, counters, report, seed, card) -> dict:
+    """Phase 15 (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import param_count, \
+        tree_leaves_with_path, tree_map_with_path
+    from repro_torch.serving.engine import H100_LEVEL_TILES
+    from repro_torch.training import OptimizerConfig, TrainConfig, \
+        apply_updates, init_train_state, make_train_step
+    from repro_torch.training.train_loop import batch_to_device
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report(f"train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           "resident before phase 15")
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    out = train_kernel_times(dev, gen, report)
+    failures = out.pop("failures")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg = get_config(TRAIN_ARCH)
+    model, plain = Model(cfg), Model(cfg, use_kernels=False)
+    total = TRAIN_STEPS + 3
+    tc = TrainConfig(optimizer=OptimizerConfig(
+        name="adamw", lr=TRAIN_LR, schedule="wsd", warmup_steps=1,
+        total_steps=total), accum_steps=TRAIN_ACCUM, remat="full")
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        seed), tc, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for _, t in tree_leaves_with_path(state)]
+    require(all(t.device.type == "cuda" for t in leaves),
+            "phase 15: a train state leaf is off the card")
+    n_params = param_count(model.param_specs())
+    n_layer_params = param_count(model.param_specs()["blocks"])
+    report(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
+           f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads} heads over "
+           f"{cfg.num_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}; "
+           f"{n_params / 1e9:.3f} B parameters; AdamW state made on the "
+           f"card in {init_s:.2f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pipeline = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed))
+    batches = [batch_to_device(pipeline.batch(i), dev) for i in range(total)]
+
+    def zero():
+        for c in counters.values():
+            c.clear()
+
+    def counts():
+        return {name: sum(c.values()) for name, c in counters.items()}
+
+    with dispatch.tile_context(H100_LEVEL_TILES[0]):
+        check = train_grad_check(model, plain, state, batches[0], report)
+        if check["worst"] > TRAIN_GRAD_RTOL or \
+                check["loss_rel"] > TRAIN_LOSS_RTOL:
+            failures.append(f"grads: largest per-leaf relative L2 "
+                            f"{check['worst']:.3e} (tolerance "
+                            f"{TRAIN_GRAD_RTOL}), loss {check['loss_rel']:.3e}"
+                            f" (tolerance {TRAIN_LOSS_RTOL})")
+        out["grad_check"] = check
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        fns = {r: make_train_step(model, dataclasses.replace(tc, remat=r))
+               for r in ("full", "none", "dots")}
+        # TRAIN_STEPS "full" steps (the main path), one more profiled, then
+        # one under "none" and one under "dots"
+        plan = ["full"] * (TRAIN_STEPS + 1) + ["none", "dots"]
+        for i, remat in enumerate(plan):
+            profiled = i == TRAIN_STEPS
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            if profiled:
+                res = {}
+
+                def one():
+                    res["out"] = fns[remat](state, batches[i])
+                prof = device_profile(one, TRAIN_GROUPS)
+                state, metrics = res["out"]
+            else:
+                state, metrics = fns[remat](state, batches[i])
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            got = counts()
+            want = train_launches(cfg, remat)
+            steps.append({"remat": remat, "wall_ms": wall_ms,
+                          "launches": got, "expected": want,
+                          "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]),
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30, "profiled": profiled})
+            if got != want:
+                failures.append(f"step {i} ({remat}): launches {got}, "
+                                f"expected {want}")
+            report(f"train step {i} remat {remat}: loss "
+                   f"{steps[-1]['loss']:.4f}, grad norm "
+                   f"{steps[-1]['grad_norm']:.3f}, lr {steps[-1]['lr']:.2e}, "
+                   f"{wall_ms:.1f} ms{' (profiled)' if profiled else ''}; "
+                   f"launches B1 {got['block_matmul']}, B2 "
+                   f"{got['flash_attention']}, B3 "
+                   f"{got['flash_attention_paged']}, B4 {got['ssd_scan']} "
+                   f"(expected {want['block_matmul']} / "
+                   f"{want['flash_attention']} / 0 / 0); peak "
+                   f"{steps[-1]['peak_gib']:.2f} GiB")
+            torch.cuda.reset_peak_memory_stats()
+    out["steps"] = steps
+    # the optimizer alone (clip, then AdamW over the fp32 state), CUDA
+    # events around one update from zero grads at the end of the phase
+    with torch.no_grad():
+        zeros = tree_map_with_path(lambda _, m: torch.zeros_like(m),
+                                   state["opt"]["master"])
+        times = []
+        for _ in range(3):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            apply_updates(tc.optimizer, zeros, state["opt"], state["step"])
+            e1.record()
+            times.append((e0, e1))
+        torch.cuda.synchronize()
+        optimizer_ms = statistics.median(a.elapsed_time(b)
+                                         for a, b in times)
+        del zeros
+    full = [st for st in steps if st["remat"] == "full"
+            and not st["profiled"]]
+    losses = [st["loss"] for st in full]
+    if not all(math.isfinite(l) for l in losses) or \
+            losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+        failures.append(f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+                        f"{len(losses)} steps: not a fall of "
+                        f"{TRAIN_LOSS_DROP}")
+    # the first step pays first-use costs: the rate from the others
+    step_ms = statistics.median(st["wall_ms"] for st in full[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops = 6 * n_params * tokens + 2 * n_layer_params * tokens
+    out["summary"] = {
+        "losses": losses, "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops": model_flops,
+        "model_flop_share": model_flops / (step_ms / 1e3) / BF16_FLOPS,
+        "peak_gib": max(st["peak_gib"] for st in full),
+        "peak_gib_none": steps[-2]["peak_gib"],
+        "peak_gib_dots": steps[-1]["peak_gib"],
+        "none_ms": steps[-2]["wall_ms"], "dots_ms": steps[-1]["wall_ms"],
+        "optimizer_ms": optimizer_ms,
+        "init_s": init_s, "n_params": n_params, "card": card}
+    out["profile"] = profile_summary(
+        f"{TRAIN_ARCH} one train step (remat full, {TRAIN_ACCUM} x "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens)",
+        step_ms * 1e3, prof, 1, report)
+    sm = out["summary"]
+    report(f"train {TRAIN_ARCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+           f"over {len(losses)} steps (remat full); step {step_ms:.1f} ms "
+           f"(median of steps 1-{len(full) - 1}), "
+           f"{sm['tokens_per_s']:.0f} tokens/s, model-FLOP share "
+           f"{sm['model_flop_share']:.3f} of 989 TFLOP/s ("
+           f"{model_flops / 1e12:.1f} TFLOP a step: 6 x params x tokens + "
+           f"the recompute), peak {sm['peak_gib']:.2f} GiB (none "
+           f"{sm['peak_gib_none']:.2f}, dots {sm['peak_gib_dots']:.2f}); "
+           f"step under none {sm['none_ms']:.1f} ms, dots "
+           f"{sm['dots_ms']:.1f} ms; the optimizer alone "
+           f"{optimizer_ms:.1f} ms an update; {card}")
+    del state, batches, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["failures"] = failures
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"train: phase 15 took {out['phase_s']:.1f} s")
+    require(not failures, "phase 15: " + "; ".join(failures))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5985,6 +6384,8 @@ def main() -> int:
     seconds["13 late"] = late["phase_s"]
     front = serve_frontends(dev, all_counters, report, args.seed)
     seconds["14 frontends"] = front["phase_s"]
+    train = train_gemma(dev, all_counters, report, args.seed, card)
+    seconds["15 train"] = train["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -6062,6 +6463,8 @@ def main() -> int:
             "moe_launches": moe_launches_by.get(name, 0),
             "late_launches": late_by.get(name, 0),
             "frontend_launches": front_by.get(name, 0),
+            "train_launches": sum(st["launches"][name]
+                                  for st in train["steps"]),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -6077,7 +6480,7 @@ def main() -> int:
         "profile": prof, "host_profile": host, "whole_model": model_check,
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
-        "moe": moe, "late": late, "frontends": front,
+        "moe": moe, "late": late, "frontends": front, "train": train,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

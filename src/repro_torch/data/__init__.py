@@ -1,0 +1,4 @@
+"""The port's token pipeline (``repro.data``)."""
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+__all__ = ["DataConfig", "TokenPipeline"]

@@ -9,6 +9,14 @@ the selected tile and the split-K cluster size :func:`split_k` picks for
 the shape (one launch either way); on a CPU tensor it runs
 :func:`matmul_plain`, the kernel's plain PyTorch version.
 
+Under autograd (grad enabled and an input that requires grad) the call
+goes through the custom op ``repro_torch::block_matmul``, whose backward
+is the same kernel twice, ``dX = dY @ Wᵀ`` and ``dW = Xᵀ @ dY``, on
+contiguous transposed copies; the reference's gradient is XLA's two
+products, which B1 is.  Being a dispatcher op, it is what a selective
+checkpoint policy can save (``models.model``'s ``"dots"`` remat).
+Without grad the call is the launch alone, as on the serving paths.
+
 The TPU wrapper clamps the tile to the zero-padded problem (``bm <=
 ceil8(M)``, ``bk <= ceil128(K)``, ``bn <= ceil128(N)``); the CUDA kernel
 masks instead of padding, and the tile never exceeds the problem rounded
@@ -123,10 +131,20 @@ def _lib() -> ctypes.CDLL:
 
 def block_matmul_2d(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
                     bk: int = 64, bn: int = 128) -> torch.Tensor:
-    """x (M,K) @ w (K,N) -> (M,N) in ``x.dtype``."""
+    """x (M,K) @ w (K,N) -> (M,N) in ``x.dtype``; differentiable when
+    grad is enabled and ``x`` or ``w`` requires it."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"block_matmul_2d: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return matmul_op(x, w, bm, bk, bn)
+    return _launch(x, w, bm, bk, bn)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, bm: int, bk: int,
+            bn: int) -> torch.Tensor:
+    """One product: the plain version on CPU tensors, else one launch of
+    the kernel."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return matmul_plain(x, w)
     if x.device.type != "cuda" or w.device != x.device:
@@ -162,3 +180,38 @@ def block_matmul_2d(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
     cuda_build.check(lib, err, "block_matmul_bf16")
     LAUNCHES[(tbm, tbk, tbn, split)] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::block_matmul", mutates_args=())
+def matmul_op(x: torch.Tensor, w: torch.Tensor, bm: int, bk: int,
+              bn: int) -> torch.Tensor:
+    """B1 as a dispatcher op with a backward: one launch forward."""
+    return _launch(x, w, bm, bk, bn)
+
+
+@matmul_op.register_fake
+def _(x, w, bm, bk, bn):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _save_operands(ctx, inputs, output):
+    x, w, bm, bk, bn = inputs
+    ctx.save_for_backward(x, w)
+    ctx.tiles = (bm, bk, bn)
+
+
+def _matmul_backward(ctx, dy):
+    """``dX = dY @ Wᵀ`` and ``dW = Xᵀ @ dY``, each one launch of the
+    kernel at the forward's tile (the kernel takes contiguous operands,
+    so the transposes are copied)."""
+    x, w = ctx.saved_tensors
+    dy = dy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = _launch(dy, w.t().contiguous(), *ctx.tiles)
+    if ctx.needs_input_grad[1]:
+        dw = _launch(x.t().contiguous(), dy, *ctx.tiles)
+    return dx, dw, None, None, None
+
+
+matmul_op.register_autograd(_matmul_backward, setup_context=_save_operands)

@@ -17,6 +17,13 @@ kernel's plain PyTorch version with the same numerics contract (fp32
 scores of the upcast, scaled q; masked scores at ``NEG_INF``; masked
 probabilities zeroed; denominator clamped at 1e-30, so a fully masked
 row is 0).
+
+Under autograd (grad enabled and q, k or v requiring grad) the call goes
+through :class:`FlashAttentionGrad`: its forward is the same launch, its
+backward the gradient of :func:`attention_plain` recomputed from the
+saved q, k and v (the reference differentiates only its plain attention
+too; a backward kernel from a saved log-sum-exp is open work).  Without
+grad the call is the launch alone, as on the serving paths.
 """
 from __future__ import annotations
 
@@ -156,12 +163,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None,
                     softcap: float | None = None) -> torch.Tensor:
     """q (B,S,H,D); k/v (B,T,K,D); offset / kv_valid_len are ints or (B,)
-    tensors.  Returns (B,S,H,D) in ``q.dtype``."""
+    tensors.  Returns (B,S,H,D) in ``q.dtype``; differentiable in q, k
+    and v when grad is enabled and one of them requires it."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
             q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionGrad.apply(q, k, v, offset, kv_valid_len, bq,
+                                        bkv, window, softcap)
+    return _launch(q, k, v, offset, kv_valid_len, bq, bkv, window, softcap)
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """B2 forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offset, kv_valid_len, bq, bkv, window,
+                softcap):
+        out = _launch(q, k, v, offset, kv_valid_len, bq, bkv, window,
+                      softcap)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (offset, kv_valid_len, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        offset, kv_valid_len, window, softcap = ctx.mask
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = attention_plain(*inputs, offset=offset,
+                                  kv_valid_len=kv_valid_len, window=window,
+                                  softcap=softcap)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, dout))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None, None, None, None, None, None)
+
+
+def _launch(q, k, v, offset, kv_valid_len, bq, bkv, window,
+            softcap) -> torch.Tensor:
+    """One call: the plain version on CPU tensors, else one launch of the
+    kernel."""
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
         return attention_plain(q, k, v, offset=offset,

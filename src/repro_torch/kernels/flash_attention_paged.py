@@ -19,7 +19,9 @@ as :func:`launch_geometry` decides from the shapes alone); on a CPU
 tensor it runs :func:`paged_attention_plain`, which gathers the
 pools through the table into dense rows and calls the dense kernel's
 plain version, so on the CPU a paged cache attends exactly as a dense
-one holding the same keys.
+one holding the same keys.  The kernel has no backward: on CUDA tensors
+that need a gradient the wrapper raises rather than return an output
+autograd would take for a constant.
 """
 from __future__ import annotations
 
@@ -136,6 +138,12 @@ def flash_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention_paged: tensors on {devices}; the "
                          "kernel takes one CUDA device")
+    if torch.is_grad_enabled() and (q.requires_grad or k_pool.requires_grad
+                                    or v_pool.requires_grad):
+        raise RuntimeError("flash_attention_paged: the kernel has no "
+                           "gradient path; call it without grad (under "
+                           "torch.no_grad() or on inputs that do not "
+                           "require grad)")
     if {q.dtype, k_pool.dtype, v_pool.dtype} != {torch.bfloat16} or \
             page_table.dtype != torch.int32:
         raise TypeError("flash_attention_paged: kernel takes bf16 q and "

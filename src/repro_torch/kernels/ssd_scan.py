@@ -20,7 +20,8 @@ group ``h // (H / G)``; the per-head form is G = H.
 On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu`` (one block per
 16 columns of P, head and row: :func:`launch_geometry`); on a CPU tensor
 it runs :func:`ssd_scan_plain`, the kernel's plain PyTorch version (fp32
-arithmetic, one chunk after another).
+arithmetic, one chunk after another).  The kernel has no backward: on
+CUDA tensors that need a gradient the wrapper raises.
 """
 from __future__ import annotations
 
@@ -221,6 +222,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if {t.device for t in tensors} == {torch.device("cpu")}:
         return ssd_scan_plain(x, dt, a, b, c, chunk_size=chunk_size,
                               initial_state=initial_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("ssd_scan: the kernel has no gradient path; call "
+                           "it without grad (under torch.no_grad() or on "
+                           "inputs that do not require grad)")
     y, state, args = _kernel_args(x, dt, a, b, c, chunk_size,
                                   initial_state, tensors)
     if args is None:

@@ -389,3 +389,23 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+def token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over the masked tokens: logits fp32 (B, S, V),
+    labels (B, S) int, the log-sum-exp in fp32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        maskf = mask.float()
+        return (nll * maskf).sum() / maskf.sum().clamp(min=1.0)
+    return nll.mean()
+
+
+# the reference's name, bound without a second ``def`` (see ``_rope_angles``)
+cross_entropy = token_cross_entropy

@@ -31,9 +31,12 @@ to either input.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -219,6 +222,41 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree_map_with_path(lambda _, a: a[i], tree)
 
 
+def _unstack(tree: PyTree, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views, each leaf unbound
+    once.  Under autograd a select per layer gives each layer's backward a
+    zero tensor the size of the whole stack (for gemma-2b's MLP stacks,
+    1.2 GB each); the unbind's backward stacks the layers' grads once."""
+    parts = tree_map_with_path(lambda _, a: a.unbind(0), tree)
+    return [tree_map_with_path(lambda _, t: t[i], parts) for i in range(n)]
+
+
+REMATS = ("none", "full", "dots")
+
+
+def _saves_product(ctx, func, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep what a weight product gives (B1,
+    and a plain product with no batch dims: ``mm``, or the ``bmm`` of
+    batch 1 that ``einsum`` makes of one), recompute the rest, as the
+    reference's ``checkpoint_dots_with_no_batch_dims`` does."""
+    if func in (torch.ops.repro_torch.block_matmul.default,
+                torch.ops.aten.mm.default) or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``, not
+    reentrant): all of it under ``"full"``, all but the weight products
+    under ``"dots"``."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _saves_product)
+    return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
+
+
 def _blank_leaf(path: tuple[str, ...], spec: ParamSpec, device):
     """A fresh cache leaf: zeros, except a ring's ``pos``, which starts at
     -1 (never written: a 0 would be a visible key at position 0)."""
@@ -386,25 +424,35 @@ class TorchModel:
             positions = self._default_positions(b, s, t0, device)
         return positions
 
+    def _plan_groups(self, params, cache):
+        """(scanned, [(kind, block params, block cache or None)]) in layer
+        order: each prologue block alone, each group's blocks together
+        (``scanned``: the unit the reference's remat wraps), then each
+        epilogue block."""
+        plan = self.plan
+        for i, kind in enumerate(plan.prologue):
+            yield False, [(kind, params[f"pro_{i}"], (
+                cache[f"pro_{i}"] if cache is not None else None))]
+        if plan.n_groups:
+            keys = [_group_key(plan, j) for j in range(len(plan.scan_kinds))]
+            stacks = {key: _unstack(params["blocks"][key], plan.n_groups)
+                      for key in keys}
+            for g in range(plan.n_groups):
+                yield True, [(kind, stacks[key][g], (
+                    _layer(cache["blocks"][key], g) if cache is not None
+                    else None)) for kind, key in zip(plan.scan_kinds, keys)]
+        for i, kind in enumerate(plan.epilogue):
+            yield False, [(kind, params[f"epi_{i}"], (
+                cache[f"epi_{i}"] if cache is not None else None))]
+
     def _plan_blocks(self, params, cache):
         """(kind, block params, block cache or None) in layer order: the
         prologue, each group's blocks, then the epilogue."""
-        plan = self.plan
-        for i, kind in enumerate(plan.prologue):
-            yield kind, params[f"pro_{i}"], (
-                cache[f"pro_{i}"] if cache is not None else None)
-        for g in range(plan.n_groups):
-            for j, kind in enumerate(plan.scan_kinds):
-                key = _group_key(plan, j)
-                yield kind, _layer(params["blocks"][key], g), (
-                    _layer(cache["blocks"][key], g) if cache is not None
-                    else None)
-        for i, kind in enumerate(plan.epilogue):
-            yield kind, params[f"epi_{i}"], (
-                cache[f"epi_{i}"] if cache is not None else None)
+        for _, blocks in self._plan_groups(params, cache):
+            yield from blocks
 
     def _run_blocks(self, params, x, *, positions, cache, t, live=None,
-                    valid_len=None, aux=None):
+                    valid_len=None, aux=None, remat="none"):
         """``valid_len`` (chunked prefill: a host int or a device scalar;
         a verify: (B,)) reaches the recurrent mixers, for which the tokens
         past it must be exact no-ops, and the hybrid's ring, which takes
@@ -414,58 +462,77 @@ class TorchModel:
         that holds a ``"page_table"`` routes every layer's KV through
         it.  ``aux``, a list, receives each MoE layer's load-balance loss
         in layer order (the serving paths drop it, as the reference's
-        serving does)."""
-        cfg = self.cfg
+        serving does).  ``remat`` (no cache) recomputes each scanned
+        group in the backward, as the reference's ``jax.checkpoint`` of
+        its group function: ``"full"`` all of it, ``"dots"`` all but the
+        weight products (:func:`_saves_product`)."""
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r} is not one of {REMATS}")
+        if remat != "none" and cache is not None:
+            raise ValueError("remat applies to a forward without a cache")
         page_table = cache.get("page_table") if cache is not None else None
-        for kind, p, c in self._plan_blocks(params, cache):
-            xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
-            if kind == "ssm":
-                x = x + ssm_mod.mamba2_block(
-                    p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
-                    live=live, use_kernel_hook=self.use_kernels)
-                continue
-            if kind == "rec":
-                x = x + rg_mod.recurrent_block(
-                    p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
-                    live=live)
-            elif kind == "attn_local":
-                x = x + self._windowed_attention(
-                    p["attn"], xa, positions=positions, cache=c, t=t,
-                    live=live, valid_len=valid_len)
-            elif kind in ("ds_dense0", "moe_ds"):
-                x = x + mla_mod.latent_attention(
-                    p["attn"], xa, cfg=cfg, positions=positions, cache=c,
-                    cache_index=t, live=live, page_table=page_table)
-            else:
-                x = x + L.attention(p["attn"], xa, cfg=cfg,
-                                    positions=positions, cache=c,
-                                    cache_index=t, live=live,
-                                    page_table=page_table,
-                                    use_kernel_hook=self.use_kernels)
-            xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
-            if kind == "moe_ds":
-                # every row of the call routes, live or not: the routing
-                # group is the reference's
-                out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
-                if aux is not None:
-                    aux.append(a)
-                if "shared" in p:
-                    out = out + L.apply_mlp(p["shared"], xm, cfg.activation,
-                                            use_kernel_hook=self.use_kernels)
-                x = x + out
-                continue
-            mlp_out = L.apply_mlp(p["mlp"], xm, cfg.activation,
-                                  use_kernel_hook=self.use_kernels)
-            if kind == "moe_arctic":
-                # the dense residual beside the routed experts, added in
-                # the reference's order: (x + mlp) + moe, each in bf16
-                moe_out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
-                if aux is not None:
-                    aux.append(a)
-                x = x + mlp_out + moe_out
-                continue
-            x = x + mlp_out
+        for scanned, blocks in self._plan_groups(params, cache):
+            def run(x, blocks=blocks):
+                losses: list = []
+                for kind, p, c in blocks:
+                    x = self._block(kind, p, c, x, positions=positions, t=t,
+                                    live=live, valid_len=valid_len,
+                                    page_table=page_table, aux=losses)
+                return x, losses
+            if scanned and remat != "none":
+                run = _checkpointed(run, remat)
+            x, losses = run(x)
+            if aux is not None:
+                aux.extend(losses)
         return x
+
+    def _block(self, kind, p, c, x, *, positions, t, live, valid_len,
+               page_table, aux):
+        """One block of the plan: the mixer, then the MLP or MoE, each
+        after its norm and added to the residual stream."""
+        cfg = self.cfg
+        xa = L.apply_norm(p["ln1"], x, cfg.norm_type)
+        if kind == "ssm":
+            return x + ssm_mod.mamba2_block(
+                p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
+                live=live, use_kernel_hook=self.use_kernels)
+        if kind == "rec":
+            x = x + rg_mod.recurrent_block(
+                p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
+                live=live)
+        elif kind == "attn_local":
+            x = x + self._windowed_attention(
+                p["attn"], xa, positions=positions, cache=c, t=t,
+                live=live, valid_len=valid_len)
+        elif kind in ("ds_dense0", "moe_ds"):
+            x = x + mla_mod.latent_attention(
+                p["attn"], xa, cfg=cfg, positions=positions, cache=c,
+                cache_index=t, live=live, page_table=page_table)
+        else:
+            x = x + L.attention(p["attn"], xa, cfg=cfg,
+                                positions=positions, cache=c,
+                                cache_index=t, live=live,
+                                page_table=page_table,
+                                use_kernel_hook=self.use_kernels)
+        xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
+        if kind == "moe_ds":
+            # every row of the call routes, live or not: the routing
+            # group is the reference's
+            out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+            aux.append(a)
+            if "shared" in p:
+                out = out + L.apply_mlp(p["shared"], xm, cfg.activation,
+                                        use_kernel_hook=self.use_kernels)
+            return x + out
+        mlp_out = L.apply_mlp(p["mlp"], xm, cfg.activation,
+                              use_kernel_hook=self.use_kernels)
+        if kind == "moe_arctic":
+            # the dense residual beside the routed experts, added in
+            # the reference's order: (x + mlp) + moe, each in bf16
+            moe_out, a = moe_mod.capacity_moe(p["moe"], xm, cfg, cfg.moe)
+            aux.append(a)
+            return x + mlp_out + moe_out
+        return x + mlp_out
 
     def _windowed_attention(self, params, x, *, positions, cache, t,
                             live=None, valid_len=None) -> torch.Tensor:
@@ -501,10 +568,12 @@ class TorchModel:
         return L.unembed(params["embed"], x, self.cfg)[:, 0]
 
     # -- entry points --------------------------------------------------------
-    def full_logits(self, params, inputs, *, positions=None):
+    def full_logits(self, params, inputs, *, positions=None, remat="none"):
         """Full-sequence forward with no cache: ``inputs["tokens"]`` (B,
         S) or ``inputs["embeds"]`` (B, S, M), positions from
-        ``positions``, ``inputs["positions"]`` or position 0 on.
+        ``positions``, ``inputs["positions"]`` or position 0 on; ``remat``
+        ``"none" | "full" | "dots"`` recomputes each scanned group in the
+        backward (``_run_blocks``).
         -> (logits (B, S, V) fp32, the MoE layers' summed load-balance
         loss, a 0-d fp32 tensor: 0 without MoE layers)."""
         cfg = self.cfg
@@ -512,7 +581,7 @@ class TorchModel:
         x = self._input_activations(params, inputs, positions)
         losses: list = []
         x = self._run_blocks(params, x, positions=positions, cache=None,
-                             t=0, aux=losses)
+                             t=0, aux=losses, remat=remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in losses:
             aux = aux + a
@@ -522,6 +591,30 @@ class TorchModel:
     # the reference's name, bound without a second ``def`` (see
     # ``make_plan``)
     forward = full_logits
+
+    def training_loss(self, params, batch, *, remat="none"):
+        """Next-token cross-entropy plus the MoE load-balance term,
+        ``aux_loss_weight * aux / num_layers``.  ``batch`` holds
+        ``tokens`` (the targets are the tokens shifted by one; a ``mask``
+        (B, S) shifts with them) or inputs with ``labels`` (B, S) and an
+        optional ``mask``.  -> (loss, {"ce": ..., "aux": ...}), 0-d fp32
+        tensors on the device."""
+        cfg = self.cfg
+        logits, aux = self.full_logits(params, batch, remat=remat)
+        if "labels" in batch:
+            labels, mask, lg = batch["labels"], batch.get("mask"), logits
+        else:
+            labels, lg = batch["tokens"][:, 1:], logits[:, :-1]
+            mask = batch.get("mask")
+            mask = mask[:, 1:] if mask is not None else None
+        ce = L.cross_entropy(lg, labels, mask)
+        aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+        total = ce + aux_w * aux / max(cfg.num_layers, 1)
+        return total, {"ce": ce, "aux": aux}
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    loss = training_loss
 
     def prefill(self, params, inputs, cache, *, positions=None):
         """Process a prompt from position 0, filling ``cache`` in place:

@@ -16,6 +16,10 @@ products as bf16 hi + lo (~2^-17 relative): 1e-3 of its largest entry.  The page
 attention kernel is held at the same 2e-2 against its plain version
 (gather, then dense attention).  The whole model
 compares logits after three residual layers of bf16 activations at 5e-2.
+Under autograd, B1's custom op (forward, dX and dW, each one launch) is
+held at the training shapes against autograd of its plain version at
+the same 2e-2, B2's gradient equals its plain version's exactly (it is
+that gradient), and B3 and B4 raise.
 """
 import dataclasses
 
@@ -1258,3 +1262,83 @@ def test_qwen2_vl_graphed_engine_serves_the_eager_streams(cuda_device):
         assert got[0] > 0 and got[0] % (3 * n) == 0, got
         assert got[1] == got[0] // 3 and got[2:] == [0, 0], got
     assert results[0] == results[1]
+
+
+# gemma-2b's MLP GEMMs at a training microbatch of 2 x 512 tokens: gate/up
+# (1024, 2048) @ (2048, 16384), down (1024, 16384) @ (16384, 2048)
+TRAIN_GEMMS = ((1024, 2048, 16384), (1024, 16384, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", TRAIN_GEMMS)
+def test_block_matmul_autograd_at_the_training_shapes(cuda_device, m, k, n):
+    """B1's custom op: the output, dX and dW against autograd of the plain
+    version, each product one launch (three in all)."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=cuda_device)
+         * k ** -0.5).bfloat16()
+    dy = torch.randn(m, n, generator=g, device=cuda_device).bfloat16()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = bm.launch_count()
+    got = bm.block_matmul_2d(xa, wa)
+    got.backward(dy)
+    assert bm.launch_count() == before + 3
+    want = matmul_ref(xp, wp)
+    want.backward(dy)
+    for a, b in ((got, want), (xa.grad, xp.grad), (wa.grad, wp.grad)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=KERNEL_TOL,
+                                   atol=KERNEL_TOL)
+    with torch.no_grad():
+        before = bm.launch_count()
+        assert bm.block_matmul_2d(xa, wa).grad_fn is None
+        assert bm.launch_count() == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card(cuda_device):
+    """B2 forward (one launch) with the plain version's gradient: the
+    output within KERNEL_TOL of the plain one, the grads those of the
+    plain version's autograd (at the kernel's inputs: the same formula)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(2, 64, h, 256, generator=g,
+                           device=cuda_device).bfloat16().requires_grad_()
+               for h in (8, 1, 1))
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, offset=0, kv_valid_len=64)
+    assert fa.launch_count() == before + 1
+    dy = torch.randn(got.shape, generator=g, device=cuda_device).bfloat16()
+    got.backward(dy)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = attention_ref(*ins, offset=0, kv_valid_len=64)
+    want.backward(dy)
+    torch.testing.assert_close(got.float(), want.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+    for a, b in zip((q, k, v), ins):
+        assert torch.equal(a.grad, b.grad)
+    assert fa.launch_count() == before + 1
+
+
+@pytest.mark.cuda
+def test_paged_attention_and_ssd_scan_raise_under_grad(cuda_device):
+    """B3 and B4 have no gradient path: on the card they raise rather than
+    return an output autograd would take for a constant."""
+    q = torch.zeros(1, 1, 2, 64, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_()
+    pool = torch.zeros(3, 16, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    table = torch.ones(1, 2, device=cuda_device, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="gradient"):
+        fap.flash_attention_paged(q, pool, pool, table, offset=0,
+                                  kv_valid_len=1)
+    x = torch.zeros(1, 4, 2, 16, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_()
+    dt = torch.zeros(1, 4, 2, device=cuda_device)
+    a = torch.zeros(2, device=cuda_device)
+    bc = torch.zeros(1, 4, 1, 16, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="gradient"):
+        ssd.ssd_scan(x, dt, a, bc, bc, chunk_size=4)
+    with torch.no_grad():
+        fap.flash_attention_paged(q, pool, pool, table, offset=0,
+                                  kv_valid_len=1)
+        ssd.ssd_scan(x, dt, a, bc, bc, chunk_size=4)
