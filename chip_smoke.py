@@ -303,6 +303,19 @@ Phases, each fatal on failure:
      the optimizer's own time an update.  Failed checks are collected
      and the phase fails at its end.  The ``kernels`` line carries
      ``train_launches``.
+ 16. ``launch/serve``, after phase 15's state is freed: the port's serving
+     entry point, called in process as a user runs ``python -m
+     repro_torch.launch.serve --arch gemma-2b`` (the card by default),
+     serves gemma-2b at its published widths and all 18 layers (random
+     weights from a generator seeded 0, ≈5 GB of bf16) from a cold
+     engine: SERVE_REQUESTS requests of SERVE_PROMPT tokens (the
+     reference's prompt recipe), SERVE_MAX_NEW new tokens each over
+     SERVE_SLOTS slots.  Fatal: every request finishes with its prompt's
+     first token plus SERVE_MAX_NEW more (the reference engine's count),
+     every token inside the vocabulary; B1 and B2 launched during the
+     phase, B3 and B4 not.  Reported: the entry point's ``[serve]`` line,
+     the launches, the phase's seconds.  The ``kernels`` line carries
+     ``serve_launches``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -6222,6 +6235,62 @@ def train_gemma(dev, counters, report, seed, card) -> dict:
     return out
 
 
+SERVE_ARCH = "gemma-2b"
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 16
+SERVE_MAX_NEW = 8
+SERVE_SLOTS = 4
+
+
+def serve_launch(counters, report, card) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report(f"serve-launch: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           "resident before phase 16")
+    vocab = get_config(SERVE_ARCH).vocab_size
+    for c in counters.values():
+        c.clear()
+    res = launch_serve.main([
+        "--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
+        "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_MAX_NEW),
+        "--slots", str(SERVE_SLOTS)])
+    launches = {name: sum(c.values()) for name, c in counters.items()}
+    done = res.pop("requests")
+    lengths = sorted(len(r.output) for r in done)
+    out = {**res, "finished": len(done), "lengths": lengths,
+           "launches": launches, "card": card}
+    gc.collect()                 # the engine's graphs and weights
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"serve-launch {res['arch']}: {len(done)}/{SERVE_REQUESTS} "
+           f"requests, {res['tokens']} tokens in {res['seconds']:.2f} s "
+           f"({res['tokens_per_s']:.1f} tokens/s, a cold engine: first-use "
+           f"captures included) on {res['device']}; launches "
+           + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()))
+           + f"; {card}")
+    report(f"serve-launch: phase 16 took {out['phase_s']:.1f} s")
+    require(len(done) == SERVE_REQUESTS and all(r.done for r in done),
+            f"phase 16: {len(done)} of {SERVE_REQUESTS} requests finished")
+    require(lengths == [SERVE_MAX_NEW + 1] * SERVE_REQUESTS,
+            f"phase 16: tokens a request {lengths}, expected "
+            f"{SERVE_MAX_NEW + 1} each")
+    require(all(0 <= t < vocab for r in done for t in r.output),
+            "phase 16: a token outside the vocabulary")
+    require(launches["block_matmul"] > 0 and launches["flash_attention"] > 0,
+            f"phase 16: B1 or B2 not launched: {launches}")
+    require(launches["flash_attention_paged"] == 0
+            and launches["ssd_scan"] == 0,
+            f"phase 16: B3 or B4 launched on a dense gemma-2b serve: "
+            f"{launches}")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6386,6 +6455,8 @@ def main() -> int:
     seconds["14 frontends"] = front["phase_s"]
     train = train_gemma(dev, all_counters, report, args.seed, card)
     seconds["15 train"] = train["phase_s"]
+    served_launch = serve_launch(all_counters, report, card)
+    seconds["16 serve-launch"] = served_launch["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -6465,6 +6536,7 @@ def main() -> int:
             "frontend_launches": front_by.get(name, 0),
             "train_launches": sum(st["launches"][name]
                                   for st in train["steps"]),
+            "serve_launches": served_launch["launches"][name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -6481,6 +6553,7 @@ def main() -> int:
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
         "moe": moe, "late": late, "frontends": front, "train": train,
+        "serve_launch": served_launch,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

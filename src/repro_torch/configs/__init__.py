@@ -9,8 +9,9 @@ applies the same reduction rules as ``repro.configs.get_reduced_config``
 returns an assigned input-shape cell (the co-location plans compile
 against ``decode_32k``).
 
-``get_shape`` is the function :func:`shape_config` under the reference's
-name: the repository's static analyzer resolves the reference's ``from
+``get_shape`` and ``all_cells`` are the functions :func:`shape_config`
+and :func:`assigned_cells` under the reference's names: the
+repository's static analyzer resolves the reference's ``from
 repro.configs import get_shape`` by that function name being unique.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.configs import arctic_480b, deepseek_v2_lite_16b, \
     gemma_2b, llama3_405b, mamba2_780m, minicpm_2b, musicgen_large, \
     qwen2_vl_2b, recurrentgemma_2b, starcoder2_3b
 from repro_torch.configs.base import SHAPES, MLAConfig, ModelConfig, \
-    MoEConfig, ShapeConfig
+    MoEConfig, ShapeConfig, shape_applicable
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -46,6 +47,19 @@ def shape_config(name: str) -> ShapeConfig:
 
 
 get_shape = shape_config
+
+
+def assigned_cells(include_skipped: bool = False):
+    """Yield (arch, shape, runnable, reason) for all 40 assigned cells."""
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            ok, reason = shape_applicable(cfg, shape)
+            if ok or include_skipped:
+                yield arch, sname, ok, reason
+
+
+all_cells = assigned_cells
 
 
 def get_reduced_config(name: str) -> ModelConfig:
@@ -93,4 +107,5 @@ def get_reduced_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "ShapeConfig", "SHAPES",
-           "ARCH_NAMES", "get_config", "get_reduced_config", "get_shape"]
+           "ARCH_NAMES", "get_config", "get_reduced_config", "get_shape",
+           "all_cells"]

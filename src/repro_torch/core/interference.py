@@ -3,7 +3,8 @@ carry ``Torch*`` names with the reference's names as aliases (see
 ``repro_torch.core.cost_model``). Names the reference's own code reaches
 by being unique in the repository are defined under port names and bound
 to the reference's: ``read_counters = poll_counters``,
-``synthesize_counters = counters_at_pressure`` and
+``synthesize_counters = counters_at_pressure``,
+``pca_variance = variance_shares`` and
 ``RunningDemand.soon_done = finishing_soon`` (the static analyzer,
 repro.analysis.callgraph, would otherwise find two definitions and
 resolve the reference's calls to neither).
@@ -323,6 +324,22 @@ class TorchLinearProxy:
 
 
 LinearProxy = TorchLinearProxy
+
+
+def variance_shares(counters: np.ndarray) -> np.ndarray:
+    """Fraction of variance per principal component (Fig. 11a).
+
+    Raw covariance (no per-counter standardization): the paper's finding
+    is that the L3-driven counters carry nearly all the *actual* variance;
+    standardizing would inflate the distractor counters' noise floor to
+    parity and bury that signal."""
+    x = counters - counters.mean(axis=0)
+    _, s, _ = np.linalg.svd(x, full_matrices=False)
+    var = s ** 2
+    return var / var.sum()
+
+
+pca_variance = variance_shares
 
 
 def calibrate_proxy(hw: HardwareSpec, n: int = 512,

@@ -1,10 +1,12 @@
-"""A copy of ``repro.core.multiversion`` without ``LadderSpec`` (pure
-Python; the port's engine takes a ladder's raw levels). Classes carry
+"""A copy of ``repro.core.multiversion`` (pure Python). Classes carry
 ``Torch*`` names with the reference's names as aliases (see
 ``repro_torch.core.cost_model``). ``VersionSet.select`` and
 ``solo_version`` are defined as ``version_for_pressure`` and
-``solo_tuned`` and bound to the reference's names: the static analyzer
-resolves the reference's calls of them by the method names being unique.
+``solo_tuned`` and bound to the reference's names, as are
+``LadderSpec``'s methods (``tiles_for_level = level_tiles``, ...): the
+static analyzer resolves the reference's calls of them by the method
+names being unique. The port's engine takes a ladder's raw levels
+(``LadderSpec.levels``).
 
 Alg. 1 — single-pass static multi-version compilation.
 
@@ -26,12 +28,127 @@ version table (the runtime scheduler just indexes it).
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import schedule_space as ss
 
 V_MAX = 5                 # paper: empirically best (Fig. 14b)
 RETENTION = 0.90          # keep perf within 90% of full set
+LADDER_SCHEMA = 1         # LadderSpec JSON schema version
+
+
+def _matmul_working_set(tiles: dict, itemsize: int = 4) -> int:
+    """Working set of a level's matmul tiling — the exclusive<->shared
+    ordering metric (A and B panels at ``itemsize``, f32 accumulator)."""
+    kw = tiles["matmul"]
+    bm, bk, bn = int(kw["bm"]), int(kw["bk"]), int(kw["bn"])
+    return (bm * bk + bk * bn) * itemsize + bm * bn * 4
+
+
+@dataclasses.dataclass
+class TorchLadderSpec:
+    """An autotuned interference-level -> tile-table ladder.
+
+    One entry per grid level (``cm.NUM_LEVELS``): level 0 is the
+    exclusive end (big tiles, maximal shared-cache reuse), the last level
+    the shared end (small tiles that cede the shared cache).  Its JSON
+    form is the reference's, so one file loads in both packages; the
+    port's ``ServingEngine(ladder=)`` and
+    ``kernels.dispatch.install_ladder`` take its ``levels``.  ``scores``
+    carries the search's predicted latency per level (observability;
+    not used online)."""
+    name: str
+    hw: str                                  # HardwareSpec.name it was tuned on
+    levels: list                             # grid idx -> {op: tiling kwargs}
+    scores: list = dataclasses.field(default_factory=list)
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return len(self.levels)
+
+    def level_tiles(self, level: float) -> dict:
+        lvl = self.levels[cm.level_to_idx(level)]
+        return {op: dict(kw) for op, kw in lvl.items()}
+
+    def distinct_tables(self) -> list:
+        """Distinct tile tables in level order (warmup's build list)."""
+        seen, out = set(), []
+        for lvl in self.levels:
+            key = tuple(sorted((op, tuple(sorted(kw.items())))
+                               for op, kw in lvl.items()))
+            if key not in seen:
+                seen.add(key)
+                out.append({op: dict(kw) for op, kw in lvl.items()})
+        return out
+
+    def check_order(self) -> None:
+        """Structural + ordering invariants.  Raises ValueError unless
+        the spec has exactly one complete matmul tiling per grid level
+        and the matmul working set is non-increasing from the exclusive
+        end to the shared end (the spectrum ordering the scheduler's
+        monotone level index assumes)."""
+        if len(self.levels) != cm.NUM_LEVELS:
+            raise ValueError(f"ladder has {len(self.levels)} levels, "
+                             f"expected {cm.NUM_LEVELS}")
+        sizes = []
+        for i, lvl in enumerate(self.levels):
+            kw = lvl.get("matmul")
+            if not kw or any(k not in kw for k in ("bm", "bk", "bn")):
+                raise ValueError(f"level {i} has no complete matmul "
+                                 f"tiling: {lvl!r}")
+            if any(int(kw[k]) < 1 for k in ("bm", "bk", "bn")):
+                raise ValueError(f"level {i} has non-positive tiles: {kw!r}")
+            sizes.append(_matmul_working_set(lvl))
+        for i in range(1, len(sizes)):
+            if sizes[i] > sizes[i - 1]:
+                raise ValueError(
+                    f"ladder ordering violated: level {i} working set "
+                    f"{sizes[i]}B > level {i - 1}'s {sizes[i - 1]}B — "
+                    "levels must walk exclusive (big tiles) -> shared "
+                    "(small tiles)")
+
+    def as_json(self) -> str:
+        return json.dumps({"schema": LADDER_SCHEMA, "name": self.name,
+                           "hw": self.hw, "levels": self.levels,
+                           "scores": self.scores, "meta": self.meta},
+                          indent=1, sort_keys=True)
+
+    @staticmethod
+    def parse_json(text: str) -> "TorchLadderSpec":
+        data = json.loads(text)
+        if data.get("schema") != LADDER_SCHEMA:
+            raise ValueError(f"unsupported ladder schema "
+                             f"{data.get('schema')!r} (want {LADDER_SCHEMA})")
+        spec = TorchLadderSpec(name=data["name"], hw=data["hw"],
+                               levels=data["levels"],
+                               scores=data.get("scores", []),
+                               meta=data.get("meta", {}))
+        spec.check_order()
+        return spec
+
+    def write_file(self, path) -> pathlib.Path:
+        p = pathlib.Path(path)
+        self.check_order()
+        p.write_text(self.as_json())
+        return p
+
+    @staticmethod
+    def read_file(path) -> "TorchLadderSpec":
+        return TorchLadderSpec.parse_json(pathlib.Path(path).read_text())
+
+    # the reference's names, bound without a second ``def``
+    tiles_for_level = level_tiles
+    tile_tables = distinct_tables
+    validate = check_order
+    to_json = as_json
+    from_json = parse_json
+    save = write_file
+    load = read_file
+
+
+LadderSpec = TorchLadderSpec
 
 
 def extract_dominant(impls: list[cm.CodeVersion]) -> list[cm.CodeVersion]:

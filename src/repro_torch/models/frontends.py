@@ -73,8 +73,16 @@ def sample_inputs(cfg: ModelConfig, shape: ShapeConfig, *, device,
     return out
 
 
+def meta_inputs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of one call as tensors on the meta device (shapes and
+    dtypes, no storage)."""
+    return {name: torch.empty(sp.shape, dtype=sp.dtype, device="meta")
+            for name, sp in frontend_input_specs(cfg, shape).items()}
+
+
 # the reference's names, bound without a second ``def``: the repository's
 # static analyzer resolves the reference's ``from repro.models.frontends
 # import input_specs`` by the function name being unique in the corpus
 input_specs = frontend_input_specs
 make_sample_inputs = sample_inputs
+abstract_inputs = meta_inputs

@@ -374,6 +374,7 @@ def embed(params: dict, tokens: torch.Tensor,
         # the reference rounds sqrt(d_model) to the activation dtype
         # first (45.25 for gemma-2b, not 45.2548)
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        # veltair: ignore[torch-host-sync] scale is a CPU tensor (no device given): float() reads host memory, nothing waits for the card
         x = x * float(scale)
     return x
 

@@ -796,3 +796,14 @@ class TorchModel:
 # bare name, and a second class named Model would merge with the
 # reference's and shrink the reference's audited hot path.
 Model = TorchModel
+
+
+@functools.lru_cache(maxsize=None)
+def model_for(cfg: ModelConfig) -> Model:
+    """The one :class:`Model` of ``cfg`` in this process (a model holds
+    its config and layer plan, never weights)."""
+    return Model(cfg)
+
+
+# the reference's name, bound without a second ``def`` (see ``make_plan``)
+build_model = model_for

@@ -147,8 +147,17 @@ def count_param_bytes(specs: PyTree) -> int:
                for _, spec in tree_leaves_with_path(specs))
 
 
+def meta_params(specs: PyTree) -> PyTree:
+    """The tree of ``specs`` as tensors on the meta device: shapes and
+    dtypes without storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map_with_path(
+        lambda _, s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        specs)
+
+
 # the reference's names, bound without a second ``def``: the repository's
 # static analyzer resolves the reference's calls of them by the function
 # name being unique in the corpus
 param_count = count_params
 param_bytes = count_param_bytes
+abstract_params = meta_params

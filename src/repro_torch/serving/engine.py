@@ -200,7 +200,9 @@ class StepInputs:
         i = self._next
         self._next = (i + 1) % self.DEPTH
         if self.cuda:
-            self._events[i].synchronize()   # no-op until first recorded
+            # veltair: ignore[torch-host-sync] waits only for this row's copy of DEPTH pushes ago (a no-op until first recorded), so the pinned row is not rewritten under it; it bounds the host's lead to DEPTH steps
+            self._events[i].synchronize()
+        # veltair: ignore[torch-host-sync] _host is a pinned CPU tensor: .numpy() views host memory, nothing is copied from the card and nothing waits
         row = self._host[i].numpy()
         b, n = self.slots, self._tok + len(tokens)
         row[0], row[1] = t0, valid
@@ -1088,7 +1090,7 @@ class TorchServingEngine:
                                       self._row)
         first = torch.argmax(logits[0])   # before another graph replays
         self._finish_row(slot, self._row, req)
-        # the one device->host sync of a monolithic admission
+        # veltair: ignore[torch-host-sync] the one device->host sync of a monolithic admission (host_syncs counts it): the first token goes to the request
         first = int(first)
         self.host_syncs += 1
         self.tokens_decoded += 1
@@ -1176,7 +1178,7 @@ class TorchServingEngine:
         else:
             first = torch.argmax(logits[0])   # before another graph replays
             self._finish_row(slot, self._row, st.req)
-            # the one device->host sync of an admission (finishing chunk)
+            # veltair: ignore[torch-host-sync] the one device->host sync of an admission, at its finishing chunk (host_syncs counts it): the first token goes to the request
             first = int(first)
             if traces0 == self.version_cache.traces:
                 self.counter_bank.observe(
@@ -1350,6 +1352,7 @@ class TorchServingEngine:
             return []
         # the one device->host sync of a quantum (a verify's block, its
         # rows' emission and acceptance come packed in one tensor)
+        # veltair: ignore[torch-host-sync] the one sanctioned sync a quantum, counted in host_syncs
         block = handle.block.cpu().numpy()
         self.host_syncs += 1
         if handle.kind == "spec":

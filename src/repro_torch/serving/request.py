@@ -1,7 +1,7 @@
 """A copy of ``repro.serving.request`` (numpy). Names the reference's own
 code reaches by being unique in the repository are defined under port
-names and bound to the reference's: ``synth_prompts = seeded_prompts``
-(the static analyzer, repro.analysis.callgraph, would otherwise find two
+names and bound to the reference's: ``synth_prompts = seeded_prompts``,
+``qos_inverse_weights = inverse_qos_weights`` (the static analyzer, repro.analysis.callgraph, would otherwise find two
 definitions and resolve the reference's calls to neither).
 
 Query/workload generation (MLPerf-Server style).
@@ -118,4 +118,11 @@ def seeded_prompts(n: int, prompt_len: int, vocab_size: int,
     return rng.integers(0, vocab_size, (n, prompt_len)).astype(np.int32)
 
 
+def inverse_qos_weights(qos_ms: dict[str, float]) -> list[float]:
+    """Per-model mix weights 1 / QoS target, in ``qos_ms``'s order (the
+    tighter a model's target, the more often it is drawn)."""
+    return [1.0 / qos_ms[m] for m in qos_ms]
+
+
 synth_prompts = seeded_prompts
+qos_inverse_weights = inverse_qos_weights

@@ -134,7 +134,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "assert not bad, bad\n"
         "new = ('repro_torch.serving.cluster', 'repro_torch.serving.tenants', "
-        "'repro_torch.core.profiles', 'repro_torch.configs')\n"
+        "'repro_torch.core.profiles', 'repro_torch.configs', "
+        "'repro_torch.analysis.callgraph', 'repro_torch.launch.serve')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
