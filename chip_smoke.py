@@ -316,6 +316,29 @@ Phases, each fatal on failure:
      phase, B3 and B4 not.  Reported: the entry point's ``[serve]`` line,
      the launches, the phase's seconds.  The ``kernels`` line carries
      ``serve_launches``.
+ 17. the mesh layer, after phase 16's engine is freed.  (b):
+     ``python -m repro_torch.launch.dryrun`` traces gemma-2b's
+     ``decode_32k`` and ``train_4k`` cells over a fake world of 256 ranks
+     (16 x 16), each in a subprocess of its own (a fake process group is
+     one per process), on the host while the rest of (a) runs: it starts
+     once (a)'s save and restore are timed.  (a): an NCCL group
+     of one rank (``tcp://localhost``, a free port) and
+     ``make_debug_mesh()``, a 1 x 1 mesh on the card; phase 16's weights
+     made again (generator seeded 0) and saved with the port's
+     ``Checkpointer`` to a temporary directory under ``build/`` (removed
+     at the phase's end, also on failure); ``reshard_plan`` of gemma-2b's
+     AdamW train state from 16 x 16 to 2 x 16 x 16, printed;
+     ``elastic_restore`` onto the 1 x 1 mesh under the serve rules.
+     Fatal: every restored leaf a DTensor whose local tensor lies on the
+     card and equals the saved leaf bit for bit; phase 16's recipe served
+     from the restored weights gives phase 16's tokens with its launches
+     (B1 1,296 and B2 432, B3 and B4 none).  (b) fatal: the decode cell
+     ``ok`` on 256 devices with FLOPs, its arguments' bytes a device
+     equal to ``device_bytes`` over the port's trees; the train cell's
+     status, FLOPs, bytes a device against the card's 80 GB, collectives
+     and seconds are reported.  Reported: the save's and the restore's
+     GB/s, the phase's seconds.  The group is destroyed at the phase's
+     end.  The ``kernels`` line carries ``elastic_launches``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -6264,7 +6287,8 @@ def serve_launch(counters, report, card) -> dict:
     done = res.pop("requests")
     lengths = sorted(len(r.output) for r in done)
     out = {**res, "finished": len(done), "lengths": lengths,
-           "launches": launches, "card": card}
+           "launches": launches, "card": card,
+           "outputs": {r.rid: [int(t) for t in r.output] for r in done}}
     gc.collect()                 # the engine's graphs and weights
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -6288,6 +6312,274 @@ def serve_launch(counters, report, card) -> dict:
             and launches["ssd_scan"] == 0,
             f"phase 16: B3 or B4 launched on a dense gemma-2b serve: "
             f"{launches}")
+    return out
+
+
+# phase 17: the dry-run cells traced beside the elastic serve, each in a
+# process of its own (a fake world is one per process), and how long the
+# script waits for them
+ELASTIC_CELLS = ("decode_32k", "train_4k")
+DRYRUN_TIMEOUT_S = 600
+# the production mesh's shape with no devices, and the next one up
+# (reshard planning)
+MESH_16x16 = {"data": 16, "model": 16}
+MESH_2x16x16 = {"pod": 2, "data": 16, "model": 16}
+CARD_BYTES = 80e9
+
+
+class MeshShape:
+    """A mesh-shape lookup with no devices: ``.shape`` maps axis names to
+    sizes (what ``dist.sharding`` and ``reshard_plan`` read)."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _bits(t):
+    """A float tensor's bits as integers of its width (``torch.equal``
+    compares values, and -0.0 == 0.0)."""
+    import torch
+    if not t.is_floating_point():
+        return t
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _start_dryruns() -> dict:
+    """The ``launch.dryrun`` cells of SERVE_ARCH at ELASTIC_CELLS, each a
+    subprocess writing its record and its log under OUT_DIR."""
+    import os
+    OUT_DIR.mkdir(exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    procs = {}
+    for shape in ELASTIC_CELLS:
+        rec = OUT_DIR / f"chip_smoke_dryrun_{shape}.jsonl"
+        rec.unlink(missing_ok=True)
+        log = open(OUT_DIR / f"chip_smoke_dryrun_{shape}.log", "w")
+        procs[shape] = (rec, log, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             SERVE_ARCH, "--shape", shape, "--out", str(rec)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _dryrun_bytes(shape_name: str) -> int:
+    """``device_bytes`` of the port's trees of one serving cell of
+    SERVE_ARCH on the 16 x 16 mesh: params under the serve rules' params
+    table, inputs and cache under its activation table."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.frontends import input_specs
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map_with_path
+    cfg, shape = get_config(SERVE_ARCH), get_shape(shape_name)
+    model, mesh = Model(cfg), MeshShape(MESH_16x16)
+    rules = shd.make_rules("serve")
+    total = 0
+    for specs, table in ((model.param_specs(), rules.params),
+                         (input_specs(cfg, shape), rules.acts),
+                         (model.cache_specs(shape.global_batch,
+                                            shape.seq_len), rules.acts)):
+        pspecs = tree_map_with_path(
+            lambda _, sp: shd.pspec_for(sp.shape, sp.axes, table, mesh),
+            specs)
+        total += shd.device_bytes(pspecs, specs, mesh)
+    return total
+
+
+def elastic_mesh(dev, counters, report, card, served_launch) -> dict:
+    """Phase 17 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import Checkpointer, elastic_restore, \
+        reshard_plan
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.state_sharding import train_state_specs
+    from repro_torch.launch.dryrun import train_config_for
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import path_str, \
+        tree_leaves_with_path, tree_map_with_path
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report(f"elastic: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           "resident before phase 17")
+    out: dict = {"card": card}
+    procs: dict = {}
+    tmp = None
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="elastic_", dir=ROOT / "build")
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{_free_port()}", rank=0, world_size=1,
+                                device_id=dev)
+        # (a) save launch/serve's weights, plan a reshard, restore onto
+        # the 1 x 1 mesh, serve phase 16's recipe from the restored tree
+        mesh = make_debug_mesh()
+        cfg = get_config(SERVE_ARCH)
+        model = Model(cfg)
+        specs = model.param_specs()
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size()
+                     for _, t in tree_leaves_with_path(params))
+        ckpt = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ckpt.save(0, params)
+        save_s = time.perf_counter() - t0
+        tspecs = train_state_specs(train_config_for(SERVE_ARCH).optimizer,
+                                   specs)
+        old, new = MeshShape(MESH_16x16), MeshShape(MESH_2x16x16)
+        trules = shd.make_rules("train")
+        plan = reshard_plan(
+            tree_map_with_path(lambda _, sp: shd.pspec_for(
+                sp.shape, sp.axes, trules.params, old), tspecs),
+            old, new, tree_map_with_path(lambda _, sp: sp.shape, tspecs))
+        out["plan"] = dataclasses.asdict(plan)
+        report(f"elastic: reshard plan of {SERVE_ARCH}'s AdamW train state "
+               f"16x16 -> 2x16x16: {plan.n_leaves} leaves, "
+               f"{plan.moved_bytes} bytes moved (2 an element, as the "
+               f"reference counts), {len(plan.incompatible)} indivisible "
+               "dims")
+        rules = shd.make_rules("serve")
+        t0 = time.perf_counter()
+        restored, step = elastic_restore(
+            ckpt, model.abstract(), shd.param_pspecs(specs, rules, mesh),
+            mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # (b) starts once the save and the restore are timed, so their
+        # GB/s are the checkpointer's own, not shared with two tracers
+        procs = _start_dryruns()
+        bad = []
+        for (p, saved), (_, got) in zip(tree_leaves_with_path(params),
+                                        tree_leaves_with_path(restored)):
+            local = got.to_local() if isinstance(got, DTensor) else None
+            if local is None or local.device.type != "cuda" or \
+                    local.shape != saved.shape or \
+                    local.dtype != saved.dtype or \
+                    not torch.equal(_bits(local), _bits(saved)):
+                bad.append(path_str(p))
+        n_leaves = len(list(tree_leaves_with_path(params)))
+        out.update(step=step, bytes=nbytes, save_s=save_s,
+                   restore_s=restore_s, leaves=n_leaves, not_equal=bad,
+                   save_gb_s=nbytes / save_s / 1e9,
+                   restore_gb_s=nbytes / restore_s / 1e9)
+        report(f"elastic: {SERVE_ARCH} ({n_leaves} leaves, {nbytes} bytes "
+               f"of bf16 and fp32) saved in {save_s:.2f} s "
+               f"({out['save_gb_s']:.2f} GB/s, card to files), restored onto "
+               f"the 1x1 cuda mesh in {restore_s:.2f} s "
+               f"({out['restore_gb_s']:.2f} GB/s, files to DTensors; the "
+               f"files' read is warm); {len(bad)} leaves not equal bit for "
+               f"bit; {card}")
+        require(not bad and step == 0,
+                f"phase 17: restored leaves off the card or not equal bit "
+                f"for bit to the saved ones: {bad[:5]}")
+        del params
+        local = tree_map_with_path(lambda _, t: t.to_local(), restored)
+        for c in counters.values():
+            c.clear()
+        engine = ServingEngine(cfg, local, batch_slots=SERVE_SLOTS,
+                               max_len=SERVE_PROMPT + SERVE_MAX_NEW + 2,
+                               device=dev)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                    max_new_tokens=SERVE_MAX_NEW)
+                for i in range(SERVE_REQUESTS)]
+        t0 = time.perf_counter()
+        done = engine.run_to_completion(reqs)
+        torch.cuda.synchronize()
+        out["serve_s"] = time.perf_counter() - t0
+        launches = {name: sum(c.values()) for name, c in counters.items()}
+        outputs = {r.rid: [int(t) for t in r.output] for r in done}
+        out.update(launches=launches, outputs=outputs,
+                   same_tokens=outputs == served_launch["outputs"])
+        report(f"elastic: served {len(done)} requests from the restored "
+               f"weights in {out['serve_s']:.2f} s, tokens "
+               + ("equal to" if out["same_tokens"] else "NOT equal to")
+               + " phase 16's; launches "
+               + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
+        require(out["same_tokens"],
+                "phase 17: the restored weights serve other tokens than "
+                "phase 16's")
+        require(launches == served_launch["launches"],
+                f"phase 17: launches {launches}, phase 16's "
+                f"{served_launch['launches']}")
+        del engine, local, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) the dry-run cells
+        cells = {}
+        for shape, (rec_path, log, t_start, proc) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(
+                    1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start)))
+            except subprocess.TimeoutExpired:
+                rc = None
+            rec = (json.loads(rec_path.read_text().splitlines()[-1])
+                   if rec_path.exists() else {"status": "no record"})
+            rec.pop("traceback", None)
+            cells[shape] = {"rc": rc, "seconds": time.perf_counter() -
+                            t_start, **rec}
+        out["dryrun"] = cells
+        for shape, rec in cells.items():
+            mem = rec.get("memory", {})
+            coll = rec.get("collectives", {})
+            report(f"elastic dryrun {SERVE_ARCH} x {shape} @ 16x16 (a fake "
+                   f"world of 256 ranks, traced on the host): "
+                   f"{rec.get('status')}, rc {rec['rc']}, "
+                   f"{rec.get('cost', {}).get('flops', 0):.6g} FLOPs, "
+                   f"arguments {mem.get('argument_size_in_bytes', 0)} bytes "
+                   f"a device ("
+                   f"{mem.get('argument_size_in_bytes', 0) / CARD_BYTES:.4f}"
+                   f" of the card's 80 GB), outputs "
+                   f"{mem.get('output_size_in_bytes', 0)} bytes; "
+                   f"collectives {coll.get('counts')}, link bytes a device "
+                   f"{coll.get('link_bytes_per_dev')}; trace "
+                   f"{rec.get('trace_s')} s, {rec['seconds']:.1f} s from "
+                   f"start; {rec.get('error', '')[:300]}")
+        dec = cells["decode_32k"]
+        want = _dryrun_bytes("decode_32k")
+        require(dec["rc"] == 0 and dec.get("status") == "ok"
+                and dec.get("n_devices") == 256
+                and dec.get("cost", {}).get("flops", 0) > 0,
+                f"phase 17: the decode_32k dry-run cell: {dec}")
+        require(dec["memory"]["argument_size_in_bytes"] == want,
+                f"phase 17: decode_32k arguments "
+                f"{dec['memory']['argument_size_in_bytes']} bytes a device, "
+                f"device_bytes {want}")
+    finally:
+        for _, log, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"elastic: phase 17 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -6457,6 +6749,8 @@ def main() -> int:
     seconds["15 train"] = train["phase_s"]
     served_launch = serve_launch(all_counters, report, card)
     seconds["16 serve-launch"] = served_launch["phase_s"]
+    elastic = elastic_mesh(dev, all_counters, report, card, served_launch)
+    seconds["17 elastic"] = elastic["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -6537,6 +6831,7 @@ def main() -> int:
             "train_launches": sum(st["launches"][name]
                                   for st in train["steps"]),
             "serve_launches": served_launch["launches"][name],
+            "elastic_launches": elastic["launches"][name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -6553,7 +6848,7 @@ def main() -> int:
         "times": times,
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
         "moe": moe, "late": late, "frontends": front, "train": train,
-        "serve_launch": served_launch,
+        "serve_launch": served_launch, "elastic": elastic,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

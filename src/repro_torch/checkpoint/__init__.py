@@ -1,5 +1,5 @@
-"""The port's checkpointer (``repro.checkpoint``; its elastic restore
-waits for the port's meshes)."""
+"""The port's checkpointer and elastic restore (``repro.checkpoint``)."""
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.elastic import elastic_restore, reshard_plan
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "elastic_restore", "reshard_plan"]

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from repro_torch.dist.placement import hint
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.block_matmul import MAX_SPLIT, SMS, \
     _pow2_at_least
@@ -68,6 +69,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = h // kh
     qf = q.float().reshape(b, s, kh, g, d) * (d ** -0.5)
     scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    # keep scores sharded like the KV sequence (a no-op outside
+    # ``dist.placement.use_rules``)
+    scores = hint(scores, ("batch", None, None, None, "seq"))
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     off = _per_row(offset, b, q.device)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.placement import hint
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.ref import attention_ref, matmul_ref, \
     paged_attention_ref
@@ -386,7 +387,7 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                               params["embedding"].to(x.dtype))
     else:
         logits = torch.einsum("bsm,mv->bsv", x, params["unembed"].to(x.dtype))
-    logits = logits.float()
+    logits = hint(logits.float(), ("batch", "seq", "vocab"))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -399,9 +400,12 @@ def token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                         mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean cross-entropy over the masked tokens: logits fp32 (B, S, V),
     labels (B, S) int, the log-sum-exp in fp32."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    # (B, S, 1) until the difference: a DTensor gather over a vocab-
+    # sharded dim is a masked partial, which cannot change rank before it
+    # is reduced (the same values and kernels as a (B, S) difference)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    ll = logits.gather(-1, labels.long()[..., None])
+    nll = (lse - ll)[..., 0]
     if mask is not None:
         maskf = mask.float()
         return (nll * maskf).sum() / maskf.sum().clamp(min=1.0)

@@ -39,13 +39,14 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.placement import hint
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params, \
-    tree_leaves_with_path, tree_map_with_path
+    meta_params, tree_leaves_with_path, tree_map_with_path
 
 PyTree = Any
 
@@ -295,6 +296,15 @@ class TorchModel:
     def init(self, generator: torch.Generator, device) -> PyTree:
         return init_params(self.param_specs(), generator, device)
 
+    def shape_only_params(self) -> PyTree:
+        """The parameter tree as meta tensors: shapes and dtypes, no
+        storage (the reference's ``ShapeDtypeStruct`` tree)."""
+        return meta_params(self.param_specs())
+
+    # the reference's name, bound without a second ``def`` (see
+    # ``make_plan``)
+    abstract = shape_only_params
+
     # -- caches ------------------------------------------------------------
     # veltair: ignore[paged-leaf-coverage] the rule's anchor is the reference's Model.cache_specs, which this class cannot reach under its own name; paged_leaf_paths below derives the pageable leaves from this method, and tests/test_torch_paging.py holds them equal to the reference's
     def cache_specs(self, batch: int, t_max: int) -> dict:
@@ -500,20 +510,21 @@ class TorchModel:
             x = x + rg_mod.recurrent_block(
                 p["mixer"], xa, cfg=cfg, cache=c, valid_len=valid_len,
                 live=live)
-        elif kind == "attn_local":
-            x = x + self._windowed_attention(
-                p["attn"], xa, positions=positions, cache=c, t=t,
-                live=live, valid_len=valid_len)
-        elif kind in ("ds_dense0", "moe_ds"):
-            x = x + mla_mod.latent_attention(
-                p["attn"], xa, cfg=cfg, positions=positions, cache=c,
-                cache_index=t, live=live, page_table=page_table)
         else:
-            x = x + L.attention(p["attn"], xa, cfg=cfg,
-                                positions=positions, cache=c,
-                                cache_index=t, live=live,
+            if kind == "attn_local":
+                h = self._windowed_attention(
+                    p["attn"], xa, positions=positions, cache=c, t=t,
+                    live=live, valid_len=valid_len)
+            elif kind in ("ds_dense0", "moe_ds"):
+                h = mla_mod.latent_attention(
+                    p["attn"], xa, cfg=cfg, positions=positions, cache=c,
+                    cache_index=t, live=live, page_table=page_table)
+            else:
+                h = L.attention(p["attn"], xa, cfg=cfg, positions=positions,
+                                cache=c, cache_index=t, live=live,
                                 page_table=page_table,
                                 use_kernel_hook=self.use_kernels)
+            x = hint(x + h, ("batch", "seq", "embed"))
         xm = L.apply_norm(p["ln2"], x, cfg.norm_type)
         if kind == "moe_ds":
             # every row of the call routes, live or not: the routing
@@ -579,6 +590,7 @@ class TorchModel:
         cfg = self.cfg
         positions = self._prompt_positions(inputs, positions, 0)
         x = self._input_activations(params, inputs, positions)
+        x = hint(x, ("batch", "seq", "embed"))
         losses: list = []
         x = self._run_blocks(params, x, positions=positions, cache=None,
                              t=0, aux=losses, remat=remat)

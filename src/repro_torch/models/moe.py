@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.dist.placement import hint
 from repro_torch.models.params import ParamSpec
 
 
@@ -102,11 +103,13 @@ def capacity_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     total = b * s
     sg = routing_group_size(total)
     xg = x.reshape(total // sg, sg, m)
+    xg = hint(xg, ("groups", None, "embed"))
     probs, onehot, dispatch, combine = route_tokens(params, xg, moe)
 
     # --- expert compute ------------------------------------------------------
     dsp = dispatch.to(x.dtype)
     expert_in = torch.einsum("gsec,gsm->egcm", dsp, xg)         # (E,G,C,M)
+    expert_in = hint(expert_in, ("expert", "groups", None, "embed"))
     gate_h = torch.einsum("egcm,emf->egcf", expert_in,
                           params["w_gate"].to(x.dtype))
     up_h = torch.einsum("egcm,emf->egcf", expert_in,
@@ -118,6 +121,7 @@ def capacity_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     h = act.to(x.dtype) * up_h
     expert_out = torch.einsum("egcf,efm->egcm", h,
                               params["w_down"].to(x.dtype))
+    expert_out = hint(expert_out, ("expert", "groups", None, "embed"))
     out = torch.einsum("gsec,egcm->gsm", combine.to(x.dtype), expert_out)
 
     # --- load-balance auxiliary loss (switch-style) --------------------------

@@ -155,9 +155,17 @@ def meta_params(specs: PyTree) -> PyTree:
         specs)
 
 
+def map_logical_axes(specs: PyTree,
+                     fn: Callable[[tuple[str | None, ...]], Any]) -> PyTree:
+    """Map each ParamSpec's logical axes through ``fn`` (e.g. -> a
+    ``dist.sharding.PartitionSpec``)."""
+    return tree_map_with_path(lambda _, s: fn(s.axes), specs)
+
+
 # the reference's names, bound without a second ``def``: the repository's
 # static analyzer resolves the reference's calls of them by the function
 # name being unique in the corpus
 param_count = count_params
 param_bytes = count_param_bytes
 abstract_params = meta_params
+map_axes = map_logical_axes

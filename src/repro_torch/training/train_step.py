@@ -63,6 +63,14 @@ def make_train_state(model: Model, generator: torch.Generator,
     return state
 
 
+def meta_train_state(model: Model, cfg: TrainConfig) -> dict:
+    """The train state as meta tensors (shapes and dtypes, no storage)
+    for the dry-run: the optimizer state around the fp32 master, and
+    ``step``; no error-feedback residual."""
+    return {"opt": make_opt_state(cfg.optimizer, model.abstract()),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
 def compress_int8(g: torch.Tensor, residual: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Error-feedback int8 quantization of one gradient tensor:
@@ -100,6 +108,14 @@ def split_microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: part(k, v, i) for k, v in batch.items()} for i in range(n)]
 
 
+def _grad_or_zeros(leaf: torch.Tensor) -> torch.Tensor:
+    """A master leaf's gradient; zeros for a leaf the loss does not read
+    (a frontend config's token embedding when it takes embeddings and
+    unembeds through its own matrix), as the reference's ``jax.grad``
+    gives."""
+    return leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+
+
 def build_train_step(model: Model, cfg: TrainConfig):
     """Returns ``step(state, batch) -> (state, metrics)``: ``metrics``
     holds ``loss``, ``grad_norm`` and ``lr``, 0-d device tensors."""
@@ -124,7 +140,7 @@ def build_train_step(model: Model, cfg: TrainConfig):
             if n > 1 and accum_dtype != torch.float32:
                 # a sum in the accumulator's dtype, as the reference's
                 # scan keeps it; the fp32 .grad is taken off each time
-                parts = {p: leaf.grad.to(accum_dtype)
+                parts = {p: _grad_or_zeros(leaf).to(accum_dtype)
                          for p, leaf in leaves.items()}
                 sums = parts if sums is None else {
                     p: sums[p] + g for p, g in parts.items()}
@@ -132,7 +148,7 @@ def build_train_step(model: Model, cfg: TrainConfig):
                     leaf.grad = None
         with torch.no_grad():
             grads = sums if sums is not None else \
-                {p: leaf.grad for p, leaf in leaves.items()}
+                {p: _grad_or_zeros(leaf) for p, leaf in leaves.items()}
             for leaf in leaves.values():
                 leaf.grad = None
             if n > 1:
@@ -159,6 +175,7 @@ def build_train_step(model: Model, cfg: TrainConfig):
 # static analyzer resolves the reference's calls of them by the function
 # name being unique in the corpus
 init_train_state = make_train_state
+abstract_train_state = meta_train_state
 _compress_int8 = compress_int8
 cast_params = cast_to_specs
 params_of = params_from_state
