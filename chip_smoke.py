@@ -102,7 +102,10 @@ Phases, each fatal on failure:
      controller, in virtual time (admissions deferred on pages, exact
      launches, an empty pool) and in wall-clock mode, and the SLO
      scheduler's pick clamped to one step by a full pool;
-  8. times at the serve's shapes (B2 and B3 also at a verify pass's,
+  8. (run right after phase 2, beside phase 17 (b)'s tracers: every
+     time here is device time between CUDA events, the stream held by
+     a device sleep while the host enqueues the loop, so the host's
+     load does not enter it) times at the serve's shapes (B2 and B3 also at a verify pass's,
      five queries a row; B1 and B2 also at recurrentgemma-2b's: its MLP
      at M = 4, 16 and 20, B1 at deepseek-v2-lite-16b's four GEMMs at M =
      4, 16 and 20, the 2100-token windowed prefill and 16-token
@@ -300,9 +303,22 @@ Phases, each fatal on failure:
      first's.  Reported: each step's loss, wall and peak memory; step ms,
      tokens/s and the model-FLOP share of 989 TFLOP/s; the profiled
      step's device time by kernel group (TRAIN_GROUPS) and idle share;
-     the optimizer's own time an update.  Failed checks are collected
-     and the phase fails at its end.  The ``kernels`` line carries
-     ``train_launches``.
+     the optimizer's own time an update.  Then mamba2-780m at its
+     published widths and TRAIN_SSM_LAYERS of its 48 layers with the same
+     recipe, through B4 under grad (``SsdScanGrad``: one launch forward,
+     the plain scan's gradient recomputed backward): the grad check
+     against the plain path at TRAIN_SSM_SEEDS weight seeds x
+     TRAIN_ACCUM microbatches, each reading under the fixed
+     TRAIN_SSM_GRAD_CEILING and the largest within
+     TRAIN_SSM_CONTROL_FACTOR times the largest one-ulp control measured
+     beside them (the plain path with the last bit of its scans' y
+     flipped on the share of entries where B4's y and the plain scan's
+     differ), TRAIN_SSM_STEPS steps with exact launches
+     (``train_ssm_launches``: B4 2 a layer a microbatch under "full", the
+     rest none), the plain backward's device time a step between CUDA
+     events, peak memory.  Failed checks are collected and the phase
+     fails at its end.  The ``kernels`` line carries ``train_launches``
+     (both models' steps).
  16. ``launch/serve``, after phase 15's state is freed: the port's serving
      entry point, called in process as a user runs ``python -m
      repro_torch.launch.serve --arch gemma-2b`` (the card by default),
@@ -320,8 +336,12 @@ Phases, each fatal on failure:
      ``python -m repro_torch.launch.dryrun`` traces gemma-2b's
      ``decode_32k`` and ``train_4k`` cells over a fake world of 256 ranks
      (16 x 16), each in a subprocess of its own (a fake process group is
-     one per process), on the host while the rest of (a) runs: it starts
-     once (a)'s save and restore are timed.  (a): an NCCL group
+     one per process), on the host: they start before phase 1's build
+     and trace beside phases 1, 2 and 8 (phase 8 runs right after phase
+     2), none of which reads a host time, and are collected before
+     phase 3, so no phase whose host time is reported runs beside them
+     (the train cell's trace takes 60-100 s of host time).  (a): an
+     NCCL group
      of one rank (``tcp://localhost``, a free port) and
      ``make_debug_mesh()``, a 1 x 1 mesh on the card; phase 16's weights
      made again (generator seeded 0) and saved with the port's
@@ -337,8 +357,32 @@ Phases, each fatal on failure:
      equal to ``device_bytes`` over the port's trees; the train cell's
      status, FLOPs, bytes a device against the card's 80 GB, collectives
      and seconds are reported.  Reported: the save's and the restore's
-     GB/s, the phase's seconds.  The group is destroyed at the phase's
-     end.  The ``kernels`` line carries ``elastic_launches``.
+     GB/s, the phase's seconds.  The group is destroyed at (a)'s end.
+     Both cells must be ``ok`` (the train cell too, since the
+     tied embedding's two gradients meet placed alike:
+     ``dist.placement.grad_in_place_of``).  The ``kernels`` line carries
+     ``elastic_launches``.
+ 18. the examples (``repro_torch.examples``), after phase 17 (a): (a)
+     ``quickstart``'s plain and speculative passes at gemma-2b's
+     published widths and all 18 layers (the example's recipe: 8
+     requests of 16 tokens, 12 new, 4 slots, ``max_len`` 48, fused quanta
+     at the largest bucket), then ``quickstart.main()`` as shipped
+     (reduced, on the card); (b) ``train_lm.main`` as shipped (reduced
+     minicpm-2b, 20 steps: B1 and B2 under grad) and on mamba2-780m (10
+     steps: B4 under grad); (c) ``multi_tenant_serving``'s card parts:
+     ``online_engine_demo``, ``colocation_demo`` (planned on the card's
+     spec) and ``speculative_demo``.  Each part's launch counters are
+     zeroed just before it and read just after; what it prints is
+     reported as ``examples <part> | ...``.  Fatal: a part that raises
+     (a demo's own assertion), a speculative stream that differs from
+     the plain one, a token outside the vocabulary, B1 or B2 not launched
+     by the quickstart, a train_lm loss that does not fall or B4 not
+     launched by the mamba2 run, an engine or train state off the card.
+     Reported: the quickstart's tokens/s and ``spec_stats`` (its
+     speculative rate only where a draft landed: at full width the
+     recipe's random prompts repeat no n-gram, and the speculative pass
+     is then a plain serve on a speculative engine), launches and seconds
+     per part.  The ``kernels`` line carries ``example_launches``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Details land in
@@ -348,6 +392,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import dataclasses
 import gc
@@ -6032,10 +6077,18 @@ def train_kernel_times(dev, gen, report) -> dict:
     return out
 
 
-def train_grad_check(model, plain, state, batch, report) -> dict:
-    """One microbatch through the kernels and through the plain versions
-    (the same master, remat "full"): the loss and every leaf's gradient,
-    none of which may be missing or all zeros."""
+def microbatch(batch: dict, index: int) -> dict:
+    """Microbatch ``index`` of a step's batch (TRAIN_ACCUM of them)."""
+    n = TRAIN_BATCH // TRAIN_ACCUM
+    return {k: v[index * n:(index + 1) * n] for k, v in batch.items()}
+
+
+def train_grad_check(model, plain, state, batch, report,
+                     mb_index: int = 0) -> dict:
+    """Microbatch ``mb_index`` of ``batch`` through the kernels and
+    through the plain versions (the same master, remat "full"): the loss
+    and every leaf's gradient, none of which may be missing or all
+    zeros."""
     import torch
     from repro_torch.models.params import path_str, tree_leaves_with_path
     from repro_torch.training.train_step import cast_params
@@ -6043,7 +6096,7 @@ def train_grad_check(model, plain, state, batch, report) -> dict:
     master = state["opt"]["master"]
     leaves = list(tree_leaves_with_path(master))
     specs = model.param_specs()
-    mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    mb = microbatch(batch, mb_index)
     out, grads = {}, {}
     for name, m in (("kernels", model), ("plain", plain)):
         loss, _ = m.loss(cast_params(master, specs), mb, remat="full")
@@ -6066,14 +6119,296 @@ def train_grad_check(model, plain, state, batch, report) -> dict:
         abs(out["plain_loss"])
     worst = max(rel, key=rel.get)
     out["worst_leaf"], out["worst"] = worst, rel[worst]
-    report(f"train grads, kernels against plain versions on one microbatch "
-           f"(2 x {TRAIN_SEQ} tokens, remat full): loss "
+    report(f"train grads {model.cfg.name}, kernels against plain versions "
+           f"on microbatch {mb_index} (2 x {TRAIN_SEQ} tokens, remat full): "
+           f"loss "
            f"{out['kernels_loss']:.6f} / {out['plain_loss']:.6f} (relative "
            f"{out['loss_rel']:.3e}); per-leaf relative L2 largest "
            f"{out['worst']:.3e} ({worst}), median "
            f"{statistics.median(rel.values()):.3e} over {len(rel)} leaves; "
            f"tolerances {TRAIN_GRAD_RTOL} (grads), {TRAIN_LOSS_RTOL} "
            "(loss)")
+    return out
+
+
+# phase 15's second model: mamba2-780m at its published widths (d_inner
+# 3072, 48 SSD heads of 64, state 128) and TRAIN_SSM_LAYERS of its 48
+# layers, trained through B4 (the kernel forward, the plain scan's
+# gradient recomputed: ``ssd_scan.SsdScanGrad``) with phase 15's recipe
+TRAIN_SSM_ARCH = "mamba2-780m"
+TRAIN_SSM_LAYERS = 6
+TRAIN_SSM_STEPS = 3         # steps under remat "full" after the grad check
+# The kernel path's gradients against the plain path's.  B4's y differs
+# from the plain scan's by one bf16 ulp on ~0.2% of entries (the kernel's
+# spec), and at random init mamba2's gradients amplify such flips layer
+# by layer: with the last bit of the plain scan's y flipped on the same
+# share of entries, the plain path's own gradients move about as far as
+# the kernel path's.  So TRAIN_GRAD_RTOL (2e-2, set from gemma-2b's
+# readings) is out of reach of any path with one-ulp differences here.
+# The check reads TRAIN_SSM_SEEDS weight seeds (the run's and the next
+# ones) x TRAIN_ACCUM microbatches; every reading's largest per-leaf
+# relative L2 must stay under the fixed TRAIN_SSM_GRAD_CEILING, and the
+# largest of them within TRAIN_SSM_CONTROL_FACTOR times the largest
+# one-ulp control over the same readings.  Readings at seed 0 on an H100
+# 80GB HBM3 (700 W), equal bit for bit in two passes: the kernel path's
+# 3.50e-2 to 7.28e-2, the control's 3.80e-2 to 6.07e-2; the ceiling
+# sits 1.37x above the largest kernel-path reading
+TRAIN_SSM_SEEDS = 5
+TRAIN_SSM_GRAD_CEILING = 0.1
+TRAIN_SSM_CONTROL_FACTOR = 2.0
+
+
+def train_ssm_launches(cfg, accum: int = TRAIN_ACCUM) -> dict:
+    """Kernel launches of one mamba2 train step under remat "full": per
+    microbatch every layer's chunked scan once forward and once more in
+    the recompute (its backward launches nothing); no MLP, no attention."""
+    return {"block_matmul": 0, "flash_attention": 0,
+            "flash_attention_paged": 0,
+            "ssd_scan": accum * cfg.num_layers * 2}
+
+
+def ssm_ulp_control(plain, state, batch, share: float,
+                    mb_index: int = 0) -> dict:
+    """The plain path's gradients on microbatch ``mb_index`` (remat
+    "full") with
+    the last bit of every scan's bf16 y flipped on ``share`` of its
+    entries (seeded; the gradient passes as the plain scan's), against
+    the unperturbed plain path's: per-leaf relative L2."""
+    import torch
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.params import path_str, tree_leaves_with_path
+    from repro_torch.training.train_step import cast_params
+
+    master = state["opt"]["master"]
+    leaves = list(tree_leaves_with_path(master))
+    specs = plain.param_specs()
+    mb = microbatch(batch, mb_index)
+    scan = ssm_mod.ssd_ref
+    gen = torch.Generator(device=mb["tokens"].device).manual_seed(1)
+
+    def flipped(*args, **kw):
+        y, st = scan(*args, **kw)
+        bits = y.detach().view(torch.int16)
+        flip = (torch.rand(bits.shape, generator=gen, device=y.device)
+                < share).to(torch.int16)
+        return y + ((bits ^ flip).view(torch.bfloat16) - y).detach(), st
+    grads = []
+    for fn in (scan, flipped):
+        ssm_mod.ssd_ref = fn
+        try:
+            loss, _ = plain.loss(cast_params(master, specs), mb,
+                                 remat="full")
+            loss.backward()
+        finally:
+            ssm_mod.ssd_ref = scan
+        grads.append({path_str(p): leaf.grad for p, leaf in leaves})
+        for _, leaf in leaves:
+            leaf.grad = None
+    rel = {p: float((grads[1][p] - g).norm() / g.norm())
+           for p, g in grads[0].items()}
+    worst = max(rel, key=rel.get)
+    return {"grad_rel_l2": rel, "worst": rel[worst], "worst_leaf": worst,
+            "median": statistics.median(rel.values()), "share": share}
+
+
+def ssm_grad_readings(model, plain, state, tc, batch, dev, seed,
+                      report) -> list[dict]:
+    """The grad check and its one-ulp control at TRAIN_SSM_SEEDS weight
+    seeds (``state`` is the first's) x TRAIN_ACCUM microbatches of
+    ``batch``: one reading each, with the share of the scan's y entries
+    where B4 and the plain version differ (layer 0, at the model's own
+    inputs)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.training import init_train_state
+
+    seen = []
+    launch = ssd._launch
+
+    def recording(x, dt, a, b, c, chunk, init, tensors):
+        y, st = launch(x, dt, a, b, c, chunk, init, tensors)
+        if not seen:
+            yp, _ = ssd.ssd_scan_plain(x, dt, a, b, c, chunk_size=chunk,
+                                       initial_state=init)
+            seen.append(float((y != yp).float().mean()))
+        return y, st
+    readings = []
+    for k in range(TRAIN_SSM_SEEDS):
+        st = state if k == 0 else init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed + k), tc,
+            dev)
+        for j in range(TRAIN_ACCUM):
+            seen.clear()
+            ssd._launch = recording
+            try:
+                check = train_grad_check(model, plain, st, batch, report,
+                                         mb_index=j)
+            finally:
+                ssd._launch = launch
+            control = ssm_ulp_control(plain, st, batch, seen[0],
+                                      mb_index=j)
+            check.update(seed=seed + k, microbatch=j, y_flip_share=seen[0],
+                         control=control)
+            report(f"train grads {TRAIN_SSM_ARCH} seed {seed + k} "
+                   f"microbatch {j}: B4's y differs from the plain scan's "
+                   f"on {seen[0]:.4f} of entries (one bf16 ulp each); the "
+                   f"kernel path's largest per-leaf relative L2 "
+                   f"{check['worst']:.3e} ({check['worst_leaf']}), the "
+                   f"plain path with the last bit of its scans' y flipped "
+                   f"on that share {control['worst']:.3e} "
+                   f"({control['worst_leaf']})")
+            readings.append(check)
+        del st
+    return readings
+
+
+def train_mamba2(dev, counters, report, seed, card) -> dict:
+    """Phase 15's mamba2-780m step (see the module docstring): the grad
+    check against the plain path, TRAIN_SSM_STEPS steps with exact
+    launches, the plain backward's device time a step (CUDA events
+    around every ``SsdScanGrad.backward``) and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import param_count
+    from repro_torch.training import OptimizerConfig, TrainConfig, \
+        init_train_state, make_train_step
+    from repro_torch.training.train_loop import batch_to_device
+
+    failures = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(TRAIN_SSM_ARCH),
+                              num_layers=TRAIN_SSM_LAYERS)
+    model, plain = Model(cfg), Model(cfg, use_kernels=False)
+    tc = TrainConfig(optimizer=OptimizerConfig(
+        name="adamw", lr=TRAIN_LR, schedule="wsd", warmup_steps=1,
+        total_steps=TRAIN_SSM_STEPS), accum_steps=TRAIN_ACCUM, remat="full")
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        seed), tc, dev)
+    n_params = param_count(model.param_specs())
+    report(f"train {TRAIN_SSM_ARCH}: {cfg.num_layers} of its 48 layers, "
+           f"d_model {cfg.d_model}, d_inner {cfg.ssm.d_inner}, "
+           f"{cfg.ssm.num_heads} SSD heads x {cfg.ssm.head_dim}, state "
+           f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}, vocab "
+           f"{cfg.vocab_size}; {n_params / 1e9:.3f} B parameters, AdamW")
+    pipeline = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed))
+    batches = [batch_to_device(pipeline.batch(i), dev)
+               for i in range(TRAIN_SSM_STEPS)]
+    readings = ssm_grad_readings(model, plain, state, tc, batches[0], dev,
+                                 seed, report)
+    worst = max(r["worst"] for r in readings)
+    controls = [r["control"]["worst"] for r in readings]
+    bound = TRAIN_SSM_CONTROL_FACTOR * max(controls)
+    out = {"grad_check": readings[0], "grad_readings": readings,
+           "grad_summary": {"worst": worst, "control_max": max(controls),
+                            "control_min": min(controls),
+                            "ceiling": TRAIN_SSM_GRAD_CEILING,
+                            "control_bound": bound}}
+    report(f"train grads {TRAIN_SSM_ARCH}: {len(readings)} readings "
+           f"({TRAIN_SSM_SEEDS} seeds x {TRAIN_ACCUM} microbatches): the "
+           f"kernel path's largest per-leaf relative L2 at most "
+           f"{worst:.3e}, the one-ulp control's {min(controls):.3e} to "
+           f"{max(controls):.3e}; held to the ceiling "
+           f"{TRAIN_SSM_GRAD_CEILING} each and to "
+           f"{TRAIN_SSM_CONTROL_FACTOR} x the largest control "
+           f"({bound:.3e}); {card}")
+    for r in readings:
+        if r["worst"] > TRAIN_SSM_GRAD_CEILING or \
+                r["loss_rel"] > TRAIN_LOSS_RTOL:
+            failures.append(f"{TRAIN_SSM_ARCH} grads, seed {r['seed']} "
+                            f"microbatch {r['microbatch']}: largest "
+                            f"per-leaf relative L2 {r['worst']:.3e} "
+                            f"(ceiling {TRAIN_SSM_GRAD_CEILING}), loss "
+                            f"{r['loss_rel']:.3e} (tolerance "
+                            f"{TRAIN_LOSS_RTOL})")
+    if worst > bound:
+        failures.append(f"{TRAIN_SSM_ARCH} grads: largest per-leaf "
+                        f"relative L2 {worst:.3e} above "
+                        f"{TRAIN_SSM_CONTROL_FACTOR} x the largest one-ulp "
+                        f"control ({bound:.3e})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # CUDA events around the plain version's gradient, recomputed in
+    # every SsdScanGrad.backward
+    events = []
+    backward = ssd.SsdScanGrad.backward
+
+    def timed_backward(ctx, dy, dstate):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        e0.record()
+        grads = backward(ctx, dy, dstate)
+        e1.record()
+        events.append((e0, e1))
+        return grads
+    step_fn = make_train_step(model, tc)
+    steps = []
+    ssd.SsdScanGrad.backward = staticmethod(timed_backward)
+    try:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.clear()
+            events.clear()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            got = {name: sum(c.values()) for name, c in counters.items()}
+            want = train_ssm_launches(cfg)
+            backward_ms = sum(a.elapsed_time(b) for a, b in events)
+            steps.append({"remat": "full", "wall_ms": wall_ms,
+                          "launches": got, "expected": want,
+                          "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "plain_backward_ms": backward_ms,
+                          "plain_backward_calls": len(events),
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30})
+            if got != want:
+                failures.append(f"{TRAIN_SSM_ARCH} step {i}: launches "
+                                f"{got}, expected {want}")
+            report(f"train {TRAIN_SSM_ARCH} step {i} remat full: loss "
+                   f"{steps[-1]['loss']:.4f}, grad norm "
+                   f"{steps[-1]['grad_norm']:.3f}, {wall_ms:.1f} ms, of it "
+                   f"the plain scan's gradient {backward_ms:.1f} ms over "
+                   f"{len(events)} backward calls (device time between CUDA "
+                   f"events); launches B4 {got['ssd_scan']} (expected "
+                   f"{want['ssd_scan']}), B1 {got['block_matmul']}, B2 "
+                   f"{got['flash_attention']}, B3 "
+                   f"{got['flash_attention_paged']}; peak "
+                   f"{steps[-1]['peak_gib']:.2f} GiB")
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        ssd.SsdScanGrad.backward = backward
+    out["steps"] = steps
+    rest = steps[1:] or steps
+    step_ms = statistics.median(st["wall_ms"] for st in rest)
+    bwd_ms = statistics.median(st["plain_backward_ms"] for st in rest)
+    out["summary"] = {"step_ms": step_ms, "plain_backward_ms": bwd_ms,
+                      "plain_backward_share": bwd_ms / step_ms,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+                      "peak_gib": max(st["peak_gib"] for st in steps),
+                      "losses": [st["loss"] for st in steps],
+                      "layers": cfg.num_layers, "n_params": n_params,
+                      "card": card}
+    losses = out["summary"]["losses"]
+    if not all(math.isfinite(l) for l in losses):
+        failures.append(f"{TRAIN_SSM_ARCH} losses {losses}")
+    report(f"train {TRAIN_SSM_ARCH}: step {step_ms:.1f} ms (median of steps "
+           f"1-{len(steps) - 1}), {out['summary']['tokens_per_s']:.0f} "
+           f"tokens/s, the plain scan's gradient {bwd_ms:.1f} ms of it "
+           f"({out['summary']['plain_backward_share']:.3f}); loss "
+           f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+           f"{out['summary']['peak_gib']:.2f} GiB; {card}")
+    del state, batches, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["failures"] = failures
     return out
 
 
@@ -6248,9 +6583,12 @@ def train_gemma(dev, counters, report, seed, card) -> dict:
            f"step under none {sm['none_ms']:.1f} ms, dots "
            f"{sm['dots_ms']:.1f} ms; the optimizer alone "
            f"{optimizer_ms:.1f} ms an update; {card}")
-    del state, batches, model, plain
+    # the profiled step's result and the leaf list hold the state too
+    del state, batches, model, plain, res, fns, metrics, leaves
     gc.collect()
     torch.cuda.empty_cache()
+    out["mamba2"] = train_mamba2(dev, counters, report, seed, card)
+    failures += out["mamba2"].pop("failures")
     out["failures"] = failures
     out["phase_s"] = time.perf_counter() - t_phase
     report(f"train: phase 15 took {out['phase_s']:.1f} s")
@@ -6424,7 +6762,6 @@ def elastic_mesh(dev, counters, report, card, served_launch) -> dict:
     report(f"elastic: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
            "resident before phase 17")
     out: dict = {"card": card}
-    procs: dict = {}
     tmp = None
     try:
         (ROOT / "build").mkdir(exist_ok=True)
@@ -6467,9 +6804,6 @@ def elastic_mesh(dev, counters, report, card, served_launch) -> dict:
             mesh)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
-        # (b) starts once the save and the restore are timed, so their
-        # GB/s are the checkpointer's own, not shared with two tracers
-        procs = _start_dryruns()
         bad = []
         for (p, saved), (_, got) in zip(tree_leaves_with_path(params),
                                         tree_leaves_with_path(restored)):
@@ -6528,7 +6862,30 @@ def elastic_mesh(dev, counters, report, card, served_launch) -> dict:
         del engine, local, restored
         gc.collect()
         torch.cuda.empty_cache()
-        # (b) the dry-run cells
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    report(f"elastic: phase 17 (a) took {out['phase_s']:.1f} s")
+    return out
+
+
+def stop_dryruns(procs: dict) -> None:
+    """Kill the dry-run tracers still running and close their logs."""
+    for _, log, _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def elastic_dryruns(procs: dict, report) -> dict:
+    """Phase 17 (b): wait for the dry-run cells (started before phase 1,
+    traced on the host beside phases 1, 2 and 8) and check them."""
+    t0 = time.perf_counter()
+    try:
         cells = {}
         for shape, (rec_path, log, t_start, proc) in procs.items():
             try:
@@ -6541,45 +6898,195 @@ def elastic_mesh(dev, counters, report, card, served_launch) -> dict:
             rec.pop("traceback", None)
             cells[shape] = {"rc": rc, "seconds": time.perf_counter() -
                             t_start, **rec}
-        out["dryrun"] = cells
-        for shape, rec in cells.items():
-            mem = rec.get("memory", {})
-            coll = rec.get("collectives", {})
-            report(f"elastic dryrun {SERVE_ARCH} x {shape} @ 16x16 (a fake "
-                   f"world of 256 ranks, traced on the host): "
-                   f"{rec.get('status')}, rc {rec['rc']}, "
-                   f"{rec.get('cost', {}).get('flops', 0):.6g} FLOPs, "
-                   f"arguments {mem.get('argument_size_in_bytes', 0)} bytes "
-                   f"a device ("
-                   f"{mem.get('argument_size_in_bytes', 0) / CARD_BYTES:.4f}"
-                   f" of the card's 80 GB), outputs "
-                   f"{mem.get('output_size_in_bytes', 0)} bytes; "
-                   f"collectives {coll.get('counts')}, link bytes a device "
-                   f"{coll.get('link_bytes_per_dev')}; trace "
-                   f"{rec.get('trace_s')} s, {rec['seconds']:.1f} s from "
-                   f"start; {rec.get('error', '')[:300]}")
-        dec = cells["decode_32k"]
-        want = _dryrun_bytes("decode_32k")
-        require(dec["rc"] == 0 and dec.get("status") == "ok"
-                and dec.get("n_devices") == 256
-                and dec.get("cost", {}).get("flops", 0) > 0,
-                f"phase 17: the decode_32k dry-run cell: {dec}")
-        require(dec["memory"]["argument_size_in_bytes"] == want,
-                f"phase 17: decode_32k arguments "
-                f"{dec['memory']['argument_size_in_bytes']} bytes a device, "
-                f"device_bytes {want}")
     finally:
-        for _, log, _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-        if tmp is not None:
-            shutil.rmtree(tmp, ignore_errors=True)
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        stop_dryruns(procs)
+    for shape, rec in cells.items():
+        mem = rec.get("memory", {})
+        coll = rec.get("collectives", {})
+        report(f"elastic dryrun {SERVE_ARCH} x {shape} @ 16x16 (a fake "
+               f"world of 256 ranks, traced on the host): "
+               f"{rec.get('status')}, rc {rec['rc']}, "
+               f"{rec.get('cost', {}).get('flops', 0):.6g} FLOPs, "
+               f"arguments {mem.get('argument_size_in_bytes', 0)} bytes "
+               f"a device ("
+               f"{mem.get('argument_size_in_bytes', 0) / CARD_BYTES:.4f}"
+               f" of the card's 80 GB), outputs "
+               f"{mem.get('output_size_in_bytes', 0)} bytes; "
+               f"collectives {coll.get('counts')}, link bytes a device "
+               f"{coll.get('link_bytes_per_dev')}; trace "
+               f"{rec.get('trace_s')} s, {rec['seconds']:.1f} s from "
+               f"start; {rec.get('error', '')[:300]}")
+    wait_s = time.perf_counter() - t0
+    report(f"elastic: waited {wait_s:.1f} s for the dry-run cells after "
+           "phase 8")
+    for shape, rec in cells.items():
+        require(rec["rc"] == 0 and rec.get("status") == "ok"
+                and rec.get("n_devices") == 256
+                and rec.get("cost", {}).get("flops", 0) > 0,
+                f"phase 17: the {shape} dry-run cell: {rec}")
+    dec = cells["decode_32k"]
+    want = _dryrun_bytes("decode_32k")
+    require(dec["memory"]["argument_size_in_bytes"] == want,
+            f"phase 17: decode_32k arguments "
+            f"{dec['memory']['argument_size_in_bytes']} bytes a device, "
+            f"device_bytes {want}")
+    return {"dryrun": cells, "dryrun_wait_s": wait_s}
+
+
+# phase 18: the examples, as a user runs them (``repro_torch.examples``):
+# quickstart's two passes at gemma-2b's published widths and depth, then
+# every example's card parts as shipped (reduced configs)
+EX_ARCH = "gemma-2b"
+EX_TRAIN_STEPS = {"minicpm-2b": 20, "mamba2-780m": 10}
+
+
+def run_examples(dev, counters, report, card) -> dict:
+    """Phase 18 (see the module docstring).  Each part runs with the
+    launch counters zeroed just before it and read just after; what it
+    prints is reported line by line (``examples <part> | ...``).  A part
+    that raises (a demo's own assertion) or fails a check is collected,
+    and the phase fails at its end."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.examples import multi_tenant_serving as mts
+    from repro_torch.examples import quickstart, seeded_params, train_lm
+    from repro_torch.models.params import tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report(f"examples: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           "resident before phase 18")
+    failures: list = []
+    out: dict = {"card": card, "parts": {}}
+    total = collections.Counter()
+
+    def part(label, fn):
+        for c in counters.values():
+            c.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        res = None
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = fn()
+        except Exception as e:                      # noqa: BLE001
+            failures.append(f"{label}: {type(e).__name__}: {e}")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {name: sum(c.values()) for name, c in counters.items()}
+        total.update(got)
+        for line in buf.getvalue().splitlines():
+            report(f"examples {label} | {line}")
+        report(f"examples {label}: {secs:.1f} s; launches "
+               + ", ".join(f"{k} {v}" for k, v in sorted(got.items())))
+        out["parts"][label] = {"seconds": secs, "launches": got}
+        return res, got
+
+    def check(cond, what):
+        if not cond:
+            failures.append(what)
+
+    # (a) quickstart's recipe at full width and depth, then its main
+    cfg = get_config(EX_ARCH)
+    params = seeded_params(cfg, dev)
+    res, got = part("quickstart full-width",
+                    lambda: quickstart.quickstart_passes(cfg, params, dev))
+    if res is not None:
+        reqs = res["requests"] + res["spec_requests"]
+        check(res["identical"], "quickstart full-width: the speculative "
+              "stream differs from the plain one")
+        check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+              "quickstart full-width: a token outside the vocabulary")
+        check(all(len(r.output) == quickstart.MAX_NEW + 1 for r in reqs),
+              "quickstart full-width: a request's token count")
+        spec_tokens = sum(len(r.output) for r in res["spec_requests"])
+        # a speculative rate only where a draft landed: otherwise the
+        # pass is a plain serve on a speculative engine, and its token
+        # identity holds trivially
+        drafted = res["spec_stats"]["spec_quanta"] > 0
+        out["quickstart"] = {
+            "layers": cfg.num_layers, "tokens": res["tokens"],
+            "seconds": res["seconds"], "tokens_per_s": res["tokens_per_s"],
+            "spec_seconds": res["spec_seconds"],
+            "spec_tokens_per_s": (spec_tokens / res["spec_seconds"]
+                                  if drafted else None),
+            "spec_stats": res["spec_stats"], "launches": got}
+        spec = (f"speculative {spec_tokens / res['spec_seconds']:.1f} "
+                f"tokens/s, token-identical {res['identical']}" if drafted
+                else f"speculative pass: no drafts landed (no n-gram of "
+                f"the random prompts recurred; {res['spec_seconds']:.3f} "
+                f"s, a plain serve on a speculative engine, so no "
+                f"speculative rate and no token-identity test)")
+        report(f"examples quickstart {EX_ARCH} ({cfg.num_layers} layers, "
+               f"d_model {cfg.d_model}, d_ff {cfg.d_ff}): plain "
+               f"{res['tokens']} tokens in {res['seconds']:.3f} s "
+               f"({res['tokens_per_s']:.1f} tokens/s, a cold engine: "
+               f"first-use captures included), {spec}; spec_stats "
+               f"{res['spec_stats']}; {card}")
+    check(got["block_matmul"] > 0 and got["flash_attention"] > 0,
+          f"quickstart full-width: B1 or B2 not launched: {got}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, got = part("quickstart main", lambda: quickstart.main([]))
+    check(res is not None and res["identical"]
+          and got["block_matmul"] > 0 and got["flash_attention"] > 0,
+          f"quickstart main: launches {got}")
+    # (b) train_lm as shipped, then on mamba2-780m (B4 under grad)
+    for arch, steps in EX_TRAIN_STEPS.items():
+        res, got = part(f"train_lm {arch}", lambda: train_lm.main(
+            ["--arch", arch, "--steps", str(steps)]))
+        if res is not None:
+            losses = res["losses"]
+            out[f"train_lm {arch}"] = {"losses": losses, "launches": got}
+            check(losses[-1][1] < losses[0][1],
+                  f"train_lm {arch}: loss {losses[0][1]:.4f} -> "
+                  f"{losses[-1][1]:.4f}")
+            check(all(t.device.type == "cuda" for _, t in
+                      tree_leaves_with_path(res["state"])),
+                  f"train_lm {arch}: a train state leaf is off the card")
+            del res
+        kernel = "ssd_scan" if arch == "mamba2-780m" else "block_matmul"
+        check(got[kernel] > 0, f"train_lm {arch}: {kernel} not launched: "
+              f"{got}")
+    # (c) multi_tenant_serving's card parts
+    rcfg = get_reduced_config(EX_ARCH)
+    rparams = seeded_params(rcfg, dev)
+    res, got = part("online", lambda: mts.online_engine_demo(
+        cm.CPU_3990X, rcfg, rparams, dev))
+    check(res is not None and res["device"].type == "cuda"
+          and got["block_matmul"] > 0 and got["flash_attention"] > 0,
+          f"online: engine on {res and res['device']}, launches {got}")
+    res, got = part("colocation", lambda: mts.colocation_demo(
+        cm.hardware_spec_for(dev), dev))
+    check(res is not None and all(d.startswith("cuda") for d in
+                                  res["devices"]) and got["ssd_scan"] > 0,
+          f"colocation: engines on {res and res['devices']}, launches "
+          f"{got}")
+    if res is not None:
+        out["colocation"] = res
+    res, got = part("speculative", lambda: mts.speculative_demo(
+        rcfg, rparams, dev))
+    check(res is not None and all(d.startswith("cuda") for d in
+                                  res["devices"]),
+          f"speculative: engines on {res and res['devices']}")
+    if res is not None:
+        out["speculative"] = {k: v for k, v in res.items()
+                              if k not in ("plain", "spec")}
+    del rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = dict(total)
+    out["failures"] = failures
     out["phase_s"] = time.perf_counter() - t_phase
-    report(f"elastic: phase 17 took {out['phase_s']:.1f} s")
+    report(f"examples: phase 18 took {out['phase_s']:.1f} s; launches "
+           + ", ".join(f"{k} {v}" for k, v in sorted(total.items())))
+    require(not failures, "phase 18: " + "; ".join(failures))
     return out
 
 
@@ -6622,6 +7129,10 @@ def main() -> int:
 
     card = card_line()
     report(card)
+    # phase 17 (b)'s tracers run on the host from here, beside phases 1,
+    # 2 and 8 (none reads a host time), and are collected before phase 3
+    dryruns = _start_dryruns()
+    atexit.register(stop_dryruns, dryruns)
     t_script = t0 = time.perf_counter()
     logs = cuda_build.build()
     build_s = time.perf_counter() - t0
@@ -6655,6 +7166,12 @@ def main() -> int:
     # seconds by phase (phases 3-7 and 10 run inside each model's turn)
     seconds = {"1 build": build_s,
                "2 kernel checks": time.perf_counter() - t_script - build_s}
+    t_mark = time.perf_counter()
+    times = (timings(dev, gen, report) + ssd_timings(dev, gen, report)
+             + paged_timings(dev, gen, report))
+    seconds["8 timings"] = time.perf_counter() - t_mark
+    dryrun_cells = elastic_dryruns(dryruns, report)
+    seconds["17 dry-run wait"] = dryrun_cells["dryrun_wait_s"]
     t_mark = time.perf_counter()
 
     rng = np.random.default_rng(args.seed)
@@ -6728,10 +7245,6 @@ def main() -> int:
         torch.cuda.empty_cache()
         seconds[f"3-7, 10 {name}"] = time.perf_counter() - t_mark
         t_mark = time.perf_counter()
-    times = (timings(dev, gen, report) + ssd_timings(dev, gen, report)
-             + paged_timings(dev, gen, report))
-    seconds["8 timings"] = time.perf_counter() - t_mark
-    t_mark = time.perf_counter()
     cluster = serve_cluster(dev, {"block_matmul": bm.LAUNCHES,
                                   "flash_attention": fa.LAUNCHES,
                                   "ssd_scan": ssd.LAUNCHES},
@@ -6751,6 +7264,9 @@ def main() -> int:
     seconds["16 serve-launch"] = served_launch["phase_s"]
     elastic = elastic_mesh(dev, all_counters, report, card, served_launch)
     seconds["17 elastic"] = elastic["phase_s"]
+    elastic.update(dryrun_cells)
+    examples = run_examples(dev, all_counters, report, card)
+    seconds["18 examples"] = examples["phase_s"]
 
     # phase 10's graphed speculative serves, first of their pairs, both
     # arms: the kernels' launches there
@@ -6829,9 +7345,11 @@ def main() -> int:
             "late_launches": late_by.get(name, 0),
             "frontend_launches": front_by.get(name, 0),
             "train_launches": sum(st["launches"][name]
-                                  for st in train["steps"]),
+                                  for st in train["steps"]
+                                  + train["mamba2"]["steps"]),
             "serve_launches": served_launch["launches"][name],
             "elastic_launches": elastic["launches"][name],
+            "example_launches": examples["launches"].get(name, 0),
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -6849,6 +7367,7 @@ def main() -> int:
         "ssd_phases": ssd_phases, "cluster": cluster, "hybrid": hybrid,
         "moe": moe, "late": late, "frontends": front, "train": train,
         "serve_launch": served_launch, "elastic": elastic,
+        "examples": examples,
         "kernels": kernels, "spec_s": spec_s, "total_s": total_s,
         "seconds": seconds,
         "lines": lines}, indent=1))

@@ -200,6 +200,29 @@ def constrain(x, axes: tuple):
     return x.redistribute(mesh, placements)
 
 
+def grad_in_place_of(x):
+    """``x`` itself, but for a DTensor that requires grad: an alias of it
+    whose gradient is redistributed to ``x``'s own placements before it
+    reaches ``x``.  A parameter read in two places (a tied embedding: the
+    lookup and the unembedding) gets one gradient from each, and autograd
+    adds them; a lookup's gradient is a partial sum over the batch's mesh
+    axis, which some torch versions' DTensor cannot add to a sharded one.
+    Placed alike, they add with no redistribution.  On a plain tensor
+    (one card, the serving engine) nothing changes."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    mesh, placements = x.device_mesh, tuple(x.placements)
+    alias = x.view_as(x)
+
+    def placed(grad):
+        if isinstance(grad, DTensor) and tuple(grad.placements) != \
+                placements:
+            return grad.redistribute(mesh, placements)
+        return grad
+    alias.register_hook(placed)
+    return alias
+
+
 # the reference's names, bound without a second ``def``: the repository's
 # static analyzer resolves the reference's calls of them (``hint`` sits on
 # its hot slice) by the function name being unique in the corpus

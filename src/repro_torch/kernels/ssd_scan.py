@@ -20,8 +20,10 @@ group ``h // (H / G)``; the per-head form is G = H.
 On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu`` (one block per
 16 columns of P, head and row: :func:`launch_geometry`); on a CPU tensor
 it runs :func:`ssd_scan_plain`, the kernel's plain PyTorch version (fp32
-arithmetic, one chunk after another).  The kernel has no backward: on
-CUDA tensors that need a gradient the wrapper raises.
+arithmetic, one chunk after another).  Under grad, when an input requires
+one, the call is :class:`SsdScanGrad`: the kernel forward (one launch)
+and the plain version's gradient backward, recomputed from the saved
+inputs, as the reference differentiates only its plain scan.
 """
 from __future__ import annotations
 
@@ -217,15 +219,57 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,L,H,P); dt (B,L,H) fp32; a (H,) fp32; b/c (B,L,G,N) with G
     dividing H (G = H: per head); initial_state (B,H,P,N) fp32 or None.
-    Returns (y (B,L,H,P) in ``x.dtype``, final state (B,H,P,N) fp32)."""
+    Returns (y (B,L,H,P) in ``x.dtype``, final state (B,H,P,N) fp32);
+    differentiable in every tensor input when grad is enabled and one of
+    them requires it."""
     tensors = _check(x, dt, a, b, c, chunk_size, initial_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return SsdScanGrad.apply(x, dt, a, b, c, initial_state, chunk_size)
+    return _launch(x, dt, a, b, c, chunk_size, initial_state, tensors)
+
+
+class SsdScanGrad(torch.autograd.Function):
+    """B4 forward, the plain version's gradient backward (against both
+    outputs: y and the final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk_size):
+        tensors = [x, dt, a, b, c] + ([] if initial_state is None
+                                      else [initial_state])
+        y, state = _launch(x, dt, a, b, c, chunk_size, initial_state,
+                           tensors)
+        ctx.save_for_backward(x, dt, a, b, c, initial_state)
+        ctx.chunk_size = chunk_size
+        # an output the loss does not read gets None, not zeros: its
+        # graph is then left out, as autograd of the plain version does
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad[:6])]
+        with torch.enable_grad():
+            y, state = ssd_scan_plain(*inputs[:5],
+                                      chunk_size=ctx.chunk_size,
+                                      initial_state=inputs[5])
+        pairs = [(o, d) for o, d in ((y, dy), (state, dstate))
+                 if d is not None]
+        outs, grads_out = [o for o, _ in pairs], [d for _, d in pairs]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wanted, grads_out,
+                                         allow_unused=True))
+        return (*(next(grads) if t is not None and t.requires_grad
+                  else None for t in inputs), None)
+
+
+def _launch(x, dt, a, b, c, chunk_size, initial_state, tensors):
+    """One call: the plain version on CPU tensors, else one launch of the
+    kernel."""
     if {t.device for t in tensors} == {torch.device("cpu")}:
         return ssd_scan_plain(x, dt, a, b, c, chunk_size=chunk_size,
                               initial_state=initial_state)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("ssd_scan: the kernel has no gradient path; call "
-                           "it without grad (under torch.no_grad() or on "
-                           "inputs that do not require grad)")
     y, state, args = _kernel_args(x, dt, a, b, c, chunk_size,
                                   initial_state, tensors)
     if args is None:

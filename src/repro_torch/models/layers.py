@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.placement import hint
+from repro_torch.dist.placement import grad_in_place_of, hint
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.ref import attention_ref, matmul_ref, \
     paged_attention_ref
@@ -370,7 +370,7 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 def embed(params: dict, tokens: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
-    x = params["embedding"][tokens]
+    x = grad_in_place_of(params["embedding"])[tokens]
     if cfg.embed_scale:
         # the reference rounds sqrt(d_model) to the activation dtype
         # first (45.25 for gemma-2b, not 45.2548)
@@ -383,8 +383,8 @@ def embed(params: dict, tokens: torch.Tensor,
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """bf16 product, then cast to fp32 (the reference's rounding)."""
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsm,vm->bsv", x,
-                              params["embedding"].to(x.dtype))
+        logits = torch.einsum("bsm,vm->bsv", x, grad_in_place_of(
+            params["embedding"]).to(x.dtype))
     else:
         logits = torch.einsum("bsm,mv->bsv", x, params["unembed"].to(x.dtype))
     logits = hint(logits.float(), ("batch", "seq", "vocab"))

@@ -37,6 +37,7 @@ Differences of form, not of result:
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RGLRUConfig
 from repro_torch.models.layers import _gelu_tanh
@@ -220,12 +221,27 @@ def ring_decode(q: torch.Tensor, cache: dict, k_new: torch.Tensor,
         nk = torch.where(live[:, None, None], nk, ck[bidx, slot])
         nv = torch.where(live[:, None, None], nv, cv[bidx, slot])
         npos = torch.where(live, npos, cpos[bidx, slot])
-    ck[bidx, slot] = nk
-    cv[bidx, slot] = nv
-    cpos[bidx, slot] = npos
+    for leaf, new in ((ck, nk), (cv, nv), (cpos, npos)):
+        _ring_write(leaf, bidx, slot, new)
     tcol = t[:, None]
     visible = (cpos >= 0) & (cpos <= tcol) & (cpos > tcol - window)
     return _ring_attend(q, ck, cv, visible[:, None, :])
+
+
+def _ring_write(leaf: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``leaf[bidx, slot] = new`` in place.  A DTensor leaf (a cache
+    sharded over the batch: the dry-run) has no sharding strategy for the
+    indexed write, so there the same values are written as a masked copy
+    of the whole ring; a plain tensor (the card, every serve) takes the
+    indexed write."""
+    if not isinstance(leaf, DTensor):
+        leaf[bidx, slot] = new
+        return
+    hit = torch.arange(leaf.shape[1], device=slot.device)[None] == \
+        slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (leaf.ndim - 2))
+    leaf.copy_(torch.where(hit, new[:, None], leaf))
 
 
 def ring_chunk(q: torch.Tensor, cache: dict, k_new: torch.Tensor,

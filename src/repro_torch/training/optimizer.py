@@ -203,7 +203,10 @@ def adafactor_step(cfg: OptimizerConfig, grads, state, step) -> dict:
         rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
         update.div_(torch.clamp(rms, min=1.0))
         if master.ndim >= 2:
-            update.add_(cfg.weight_decay * master)
+            # out of place, as the reference writes it: on a sharded leaf
+            # the update may be a partial sum that DTensor cannot add a
+            # shard to in place
+            update = update + cfg.weight_decay * master
         master.sub_(update.mul_(lr))
     return state
 

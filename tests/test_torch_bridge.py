@@ -135,7 +135,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert not bad, bad\n"
         "new = ('repro_torch.serving.cluster', 'repro_torch.serving.tenants', "
         "'repro_torch.core.profiles', 'repro_torch.configs', "
-        "'repro_torch.analysis.callgraph', 'repro_torch.launch.serve')\n"
+        "'repro_torch.analysis.callgraph', 'repro_torch.launch.serve', "
+        "'repro_torch.examples.quickstart', "
+        "'repro_torch.examples.adaptive_compilation_demo', "
+        "'repro_torch.examples.tpu_pod_serving', "
+        "'repro_torch.examples.train_lm', "
+        "'repro_torch.examples.multi_tenant_serving')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )

@@ -18,8 +18,8 @@ attention kernel is held at the same 2e-2 against its plain version
 compares logits after three residual layers of bf16 activations at 5e-2.
 Under autograd, B1's custom op (forward, dX and dW, each one launch) is
 held at the training shapes against autograd of its plain version at
-the same 2e-2, B2's gradient equals its plain version's exactly (it is
-that gradient), and B3 and B4 raise.
+the same 2e-2, B2's and B4's gradients equal their plain versions'
+exactly (they are those gradients), and B3 raises.
 """
 import dataclasses
 
@@ -1321,9 +1321,10 @@ def test_flash_attention_autograd_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_paged_attention_and_ssd_scan_raise_under_grad(cuda_device):
-    """B3 and B4 have no gradient path: on the card they raise rather than
-    return an output autograd would take for a constant."""
+def test_paged_attention_raises_under_grad(cuda_device):
+    """B3 has no gradient path (it lies on no training path): on the card
+    it raises rather than return an output autograd would take for a
+    constant."""
     q = torch.zeros(1, 1, 2, 64, device=cuda_device,
                     dtype=torch.bfloat16).requires_grad_()
     pool = torch.zeros(3, 16, 1, 64, device=cuda_device, dtype=torch.bfloat16)
@@ -1331,14 +1332,54 @@ def test_paged_attention_and_ssd_scan_raise_under_grad(cuda_device):
     with pytest.raises(RuntimeError, match="gradient"):
         fap.flash_attention_paged(q, pool, pool, table, offset=0,
                                   kv_valid_len=1)
-    x = torch.zeros(1, 4, 2, 16, device=cuda_device,
-                    dtype=torch.bfloat16).requires_grad_()
-    dt = torch.zeros(1, 4, 2, device=cuda_device)
-    a = torch.zeros(2, device=cuda_device)
-    bc = torch.zeros(1, 4, 1, 16, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="gradient"):
-        ssd.ssd_scan(x, dt, a, bc, bc, chunk_size=4)
     with torch.no_grad():
         fap.flash_attention_paged(q, pool, pool, table, offset=0,
                                   kv_valid_len=1)
-        ssd.ssd_scan(x, dt, a, bc, bc, chunk_size=4)
+
+
+# mamba2-780m's training shapes (a microbatch of 2 x 512 tokens, 48 heads
+# of 64, B and C in one group of 128, chunks of 256), and a ragged one
+# (L no multiple of the chunk, G 2 < H 4, a carried state)
+SSD_GRAD_CASES = [(2, 512, 48, 64, 1, 128, 256, False),
+                  (2, 37, 4, 32, 2, 16, 16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,l,h,p,g,n,chunk,with_init", SSD_GRAD_CASES)
+def test_ssd_scan_autograd_on_the_card(cuda_device, bsz, l, h, p, g, n,
+                                       chunk, with_init):
+    """B4 forward (one launch) with the plain version's gradient against
+    both outputs: y and the state within the kernel tolerances of the
+    plain ones, every input's gradient that of the plain version's
+    autograd at the kernel's inputs (the same formula), bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(l + h)
+    x, dt, a, b, c, h0 = _ssd_inputs(gen, cuda_device, bsz, l, h, p, n,
+                                     with_init)
+    b, c = b[:, :, :g].contiguous(), c[:, :, :g].contiguous()
+    ins = [t for t in (x, dt, a, b, c, h0) if t is not None]
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want_in = [t.clone().requires_grad_() for t in ins]
+    init = (lambda t: t[5] if with_init else None)
+    before = ssd.launch_count()
+    y, state = ssd.ssd_scan(*got_in[:5], chunk_size=chunk,
+                            initial_state=init(got_in))
+    assert ssd.launch_count() == before + 1
+    dy = torch.randn(y.shape, generator=gen, device=cuda_device).bfloat16()
+    ds = torch.randn(state.shape, generator=gen, device=cuda_device)
+    torch.autograd.backward([y, state], [dy, ds])
+    assert ssd.launch_count() == before + 1
+    want_y, want_s = ssd_ref(*want_in[:5], chunk_size=chunk,
+                             initial_state=init(want_in))
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+    torch.testing.assert_close(
+        state, want_s.detach(), rtol=0,
+        atol=STATE_TOL * want_s.abs().max().item())
+    torch.autograd.backward([want_y, want_s], [dy, ds])
+    for got_t, want_t in zip(got_in, want_in):
+        assert torch.equal(got_t.grad, want_t.grad)
+    with torch.no_grad():
+        before = ssd.launch_count()
+        y, _ = ssd.ssd_scan(*got_in[:5], chunk_size=chunk,
+                            initial_state=init(got_in))
+        assert y.grad_fn is None and ssd.launch_count() == before + 1

@@ -11,7 +11,9 @@ argument itself outside ``use_rules`` and, inside one over a 1 x 1 gloo
 mesh, redistributes a DTensor to the placements of the spec the
 reference's ``hint`` constrains to on an ``Auto``-axis JAX mesh; a
 reduced gemma-2b decode step on DTensors under the rules gives the plain
-step's logits bit for bit; ``map_axes``, ``Model.abstract`` and
+step's logits bit for bit; the tied embedding's gradient on DTensors
+equals the plain one, on its own placements (one and two ranks);
+``map_axes``, ``Model.abstract`` and
 ``abstract_train_state`` give the reference's trees' shapes and dtypes;
 the modules export the reference's names; and importing the port
 initialises no process group.
@@ -289,6 +291,84 @@ def test_hint_redistributes_to_the_reference_spec(gloo):
     assert tuple(got.placements) == (Shard(1), Shard(0))
 
 
+def test_adafactor_step_on_sharded_leaves_equals_the_plain_step(gloo):
+    """Adafactor over DTensor leaves of the 1 x 1 mesh (a factored matrix
+    sharded on both mesh dims, its gradient a partial sum over "data"; a
+    vector and a small matrix with full statistics), the weight decay
+    added out of place as the reference adds it: two steps give the
+    plain tensors' masters and statistics bit for bit."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.training import optimizer as topt
+
+    g = torch.Generator().manual_seed(0)
+    shapes = {"w": (8, 16), "b": (16,), "v": (3, 4)}
+    place = {"w": [Shard(0), Shard(1)], "b": [Replicate(), Shard(0)],
+             "v": [Shard(0), Replicate()]}
+    params = {k: torch.randn(sh, generator=g) for k, sh in shapes.items()}
+    grads = [{k: torch.randn(sh, generator=g) for k, sh in shapes.items()}
+             for _ in range(2)]
+    cfg = OptimizerConfig(name="adafactor", lr=3e-3, warmup_steps=0,
+                          total_steps=10, weight_decay=0.1)
+    plain = topt.init_opt_state(cfg, {k: t.clone()
+                                      for k, t in params.items()})
+    sharded = topt.init_opt_state(cfg, {k: t.clone()
+                                        for k, t in params.items()})
+    sharded["master"] = {k: distribute_tensor(t.clone(), gloo, place[k])
+                         for k, t in params.items()}
+    sharded["stats"] = {k: {n: distribute_tensor(t, gloo, [Replicate()] * 2)
+                            for n, t in st.items()}
+                        for k, st in sharded["stats"].items()}
+    grad_place = dict(place, w=[Partial(), Shard(1)])
+    with torch.no_grad(), implicit_replication():
+        for step, gr in enumerate(grads):
+            plain, _ = topt.apply_updates(
+                cfg, {k: t.clone() for k, t in gr.items()}, plain,
+                torch.tensor(step, dtype=torch.int32))
+            sharded, _ = topt.apply_updates(
+                cfg, {k: DTensor.from_local(t.clone(), gloo, grad_place[k],
+                                            run_check=False)
+                      for k, t in gr.items()}, sharded,
+                distribute_tensor(torch.tensor(step, dtype=torch.int32),
+                                  gloo, [Replicate()] * 2))
+    for k in shapes:
+        got = sharded["master"][k]
+        assert isinstance(got, DTensor) and \
+            tuple(got.placements) == tuple(place[k])
+        assert torch.equal(got.full_tensor(), plain["master"][k])
+        for n, t in plain["stats"][k].items():
+            assert torch.equal(sharded["stats"][k][n].full_tensor(), t)
+
+
+def test_ring_write_on_a_sharded_cache_equals_the_indexed_write(gloo):
+    """The hybrid's ring write (``rglru._ring_write``): on a DTensor cache
+    sharded over the batch (the dry-run's decode cells) it writes, as a
+    masked copy, what the indexed write puts in a plain tensor (under
+    ``implicit_replication``, as the dry-run traces)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import rglru
+    g = torch.Generator().manual_seed(3)
+    bidx, slot = torch.arange(4), torch.tensor([0, 5, 2, 7])
+    for shape, dtype in (((4, 8, 2, 16), torch.bfloat16),
+                         ((4, 8), torch.int32)):
+        if dtype.is_floating_point:
+            leaf = torch.randn(shape, generator=g).to(dtype)
+            new = torch.randn((4,) + shape[2:], generator=g).to(dtype)
+        else:
+            leaf = torch.randint(-1, 100, shape, generator=g, dtype=dtype)
+            new = torch.randint(0, 100, (4,), generator=g, dtype=dtype)
+        want = leaf.clone()
+        rglru._ring_write(want, bidx, slot, new)
+        placed = [Shard(0), Replicate()]
+        sharded = distribute_tensor(leaf.clone(), gloo, placed)
+        with implicit_replication():
+            rglru._ring_write(sharded, bidx, slot,
+                              distribute_tensor(new, gloo, placed))
+        assert tuple(sharded.placements) == tuple(placed)
+        assert torch.equal(sharded.full_tensor(), want)
+        assert not torch.equal(want, leaf)
+
+
 # The decode step runs in a child process: ``register_dtensor_rules``
 # changes DTensor's rules for the rest of the process it runs in.
 DECODE_ON_DTENSORS = """
@@ -359,6 +439,138 @@ def test_decode_on_dtensors_equals_the_plain_step():
         capture_output=True, text=True, timeout=240, cwd=root)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "DECODE_ON_DTENSORS_OK" in res.stdout
+
+
+# One rank of a gloo world of ``world`` ranks (a file store), the mesh
+# ``world`` x 1 on the CPU; run as ``python -c SCRIPT rank world store``.
+TIED_EMBEDDING_GRAD = """
+import sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_reduced_config
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.placement import grad_in_place_of
+from repro_torch.launch.dryrun import register_dtensor_rules
+from repro_torch.models import build_model, layers
+from repro_torch.models.params import tree_leaves_with_path, \\
+    tree_map_with_path
+from repro_torch.training.train_step import cast_to_specs
+
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+try:
+    mesh = init_device_mesh("cpu", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    register_dtensor_rules()
+    cfg = get_reduced_config("gemma-2b")
+    assert cfg.tie_embeddings
+    rules = shd.make_rules("train")
+    model = build_model(cfg)
+    specs = model.param_specs()
+    placed = shd.shardings_of(shd.param_pspecs(specs, rules, mesh), mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (2 * world, 16),
+                           generator=torch.Generator().manual_seed(1))
+    dtokens = distribute_tensor(tokens, mesh, [Shard(0), Replicate()])
+    plain = torch.ones(3, requires_grad=True)
+    assert grad_in_place_of(plain) is plain
+    master = tree_map_with_path(
+        lambda _, t: t.float().requires_grad_(True),
+        model.init(torch.Generator().manual_seed(0), "cpu"))
+    dmaster = tree_map_with_path(
+        lambda _, t, pl: distribute_tensor(t.detach().clone(), mesh,
+                                           list(pl)).requires_grad_(True),
+        master, placed)
+    emb, demb = master["embed"]["embedding"], dmaster["embed"]["embedding"]
+    if world == 1:
+        loss, _ = model.loss(cast_to_specs(master, specs),
+                             {"tokens": tokens})
+        loss.backward()
+        with shd.use_rules(mesh, rules), implicit_replication():
+            dloss, _ = model.loss(cast_to_specs(dmaster, specs),
+                                  {"tokens": dtokens})
+            dloss.backward()
+        assert torch.equal(dloss.full_tensor(), loss)
+        for (p, a), (_, b) in zip(tree_leaves_with_path(master),
+                                  tree_leaves_with_path(dmaster)):
+            assert torch.equal(b.grad.full_tensor(), a.grad), p
+        # the lookup's own gradient lies elsewhere; through the alias it
+        # reaches the parameter on the parameter's placements
+        for hooked in (False, True):
+            leaf = distribute_tensor(emb.detach().clone(), mesh,
+                                     list(demb.placements))
+            leaf.requires_grad_(True)
+            with implicit_replication():
+                src = grad_in_place_of(leaf) if hooked else leaf
+                src[dtokens].sum().backward()
+            assert (tuple(leaf.grad.placements)
+                    == tuple(demb.placements)) == hooked
+        assert tuple(demb.grad.placements) == tuple(demb.placements)
+    else:
+        # the embedding replicated and the batch split over "data": both
+        # reads' gradients arrive as partial sums over the ranks, which
+        # the alias must reduce
+        def tied(p, tok):
+            x = layers.embed(p, tok, cfg)
+            return layers.unembed(p, x, cfg).square().mean()
+
+        def replicated():
+            leaf = distribute_tensor(emb.detach().clone(), mesh,
+                                     [Replicate(), Replicate()])
+            return leaf.requires_grad_(True)
+        tied({"embedding": emb}, tokens).backward()
+        rep, raw = replicated(), replicated()
+        x = distribute_tensor(
+            torch.randn(2 * world, 16, cfg.d_model,
+                        generator=torch.Generator().manual_seed(2)),
+            mesh, [Shard(0), Replicate()])
+        with implicit_replication():
+            tied({"embedding": rep}, dtokens).backward()
+            torch.einsum("bsm,vm->bsv", x, raw).square().sum().backward()
+        assert tuple(raw.grad.placements) != tuple(raw.placements)
+        assert tuple(rep.grad.placements) == tuple(rep.placements)
+        torch.testing.assert_close(rep.grad.full_tensor(), emb.grad,
+                                   rtol=1e-5, atol=1e-9)
+finally:
+    dist.destroy_process_group()
+print("TIED_EMBEDDING_GRAD_OK")
+"""
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_tied_embedding_grad_on_dtensors_equals_the_plain_grad(world,
+                                                               tmp_path):
+    """``dist.placement.grad_in_place_of`` on the tied embedding's two
+    reads (``layers.embed`` and ``layers.unembed``), under the train rules
+    and the dry-run's DTensor rules; the identity on a plain tensor.  One
+    rank (the 1 x 1 mesh): reduced gemma-2b's loss on DTensor masters
+    gives every leaf's gradient of the plain tensors bit for bit, the
+    embedding's on the embedding's own placements, which the lookup's
+    gradient alone does not lie on.  Two ranks (a 2 x 1 mesh, the batch
+    split over "data", the embedding replicated, so each read's gradient
+    is a partial sum over the ranks): the embedding's two reads alone, in
+    fp32, give the plain gradient to fp32 rounding (rtol 1e-5), on the
+    embedding's placements, where the unembedding's product alone leaves
+    its gradient a partial sum."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TIED_EMBEDDING_GRAD, str(rank), str(world),
+         store], env=env, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(world)]
+    try:
+        outs = [proc.communicate(timeout=240) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    for proc, (out, err) in zip(procs, outs):
+        assert proc.returncode == 0, err[-3000:]
+        assert "TIED_EMBEDDING_GRAD_OK" in out
 
 
 def test_map_axes_and_abstract_trees_follow_the_reference():

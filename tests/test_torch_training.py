@@ -25,6 +25,7 @@ on the reference's own initial weights; the data pipeline's batches equal
 the reference's bit for bit; ``launch.train.main`` trains in process; the
 kernels' autograd paths equal autograd of their plain versions.
 """
+import collections
 import dataclasses
 import functools
 
@@ -50,6 +51,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models.frontends import make_sample_inputs as \
     torch_sample_inputs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -530,6 +532,94 @@ def test_flash_attention_autograd_equals_plain(kv_heads, window, softcap,
     _same_grads(functools.partial(fa.flash_attention, **kw),
                 functools.partial(fa.attention_plain, **kw),
                 [q.detach(), k, v])
+
+
+@pytest.mark.parametrize("chunk,init,outputs", [
+    (4, True, "both"), (4, False, "y"), (16, True, "state")])
+def test_ssd_scan_autograd_equals_plain(chunk, init, outputs):
+    """B4's autograd path (the kernel forward, the plain version's
+    gradient recomputed) against autograd of the plain version: L 11 is
+    no multiple of the chunk (the last chunk cut short), B and C come in
+    G 2 groups over H 4 heads, the carried state given or not, and the
+    gradient taken of y, of the final state or of both."""
+    g = torch.Generator().manual_seed(2)
+    bsz, l, h, p, groups, n = 2, 11, 4, 8, 2, 16
+    x = torch.randn(bsz, l, h, p, generator=g).bfloat16()
+    dt = torch.rand(bsz, l, h, generator=g) * 0.5
+    a = -torch.rand(h, generator=g) - 0.1
+    b = torch.randn(bsz, l, groups, n, generator=g).bfloat16()
+    c = torch.randn(bsz, l, groups, n, generator=g).bfloat16()
+    h0 = torch.randn(bsz, h, p, n, generator=g)
+    ins = [x, dt, a, b, c] + ([h0] if init else [])
+    dy = torch.randn(x.shape, generator=g).bfloat16()
+    ds = torch.randn(bsz, h, p, n, generator=g)
+    grads = []
+    for fn in (ssd.ssd_scan, ssd.ssd_scan_plain):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y, state = fn(*leaves[:5], chunk_size=chunk,
+                      initial_state=leaves[5] if init else None)
+        assert (type(y.grad_fn).__name__ == "SsdScanGradBackward") == \
+            (fn is ssd.ssd_scan)
+        grads.append((y.detach(), state.detach()))
+        outs = {"both": ([y, state], [dy, ds]), "y": ([y], [dy]),
+                "state": ([state], [ds])}[outputs]
+        torch.autograd.backward(*outs)
+        grads.append([t.grad for t in leaves])
+    (y_k, s_k), g_k, (y_p, s_p), g_p = grads
+    assert torch.equal(y_k, y_p) and torch.equal(s_k, s_p)
+    # the final state reads no C: C's gradient is None on both sides then
+    assert [t is None for t in g_k] == [t is None for t in g_p] == \
+        [outputs == "state" and i == 4 for i in range(len(ins))]
+    for got, want in zip(g_k, g_p):
+        assert got is None or torch.equal(got, want)
+    with torch.no_grad():
+        y, _ = ssd.ssd_scan(*ins[:5], chunk_size=chunk)
+        assert y.grad_fn is None
+
+
+def test_mamba2_loss_and_grads_match_reference():
+    """Reduced mamba2-780m (its chunked scans through ``ssd_scan``'s
+    autograd path) from one bridged train state: the loss within
+    LOSS_RTOL of the reference's ``Model.loss`` (which scans through its
+    plain ``ssd_reference``), every leaf's gradient within GRAD_RTOL
+    relative L2 of ``jax.value_and_grad``'s, remat "full"."""
+    jmodel = build_model(jax_reduced_config("mamba2-780m"))
+    tmodel = Model(get_reduced_config("mamba2-780m"))
+    tc = jstep.TrainConfig(optimizer=jopt.OptimizerConfig(
+        lr=1e-2, warmup_steps=0, total_steps=8))
+    jstate = jstep.init_train_state(jmodel, jax.random.PRNGKey(5), tc)
+    tokens = _tokens(vocab=jmodel.cfg.vocab_size)["tokens"]
+    specs = jmodel.param_specs()
+    master = jstate["opt"]["master"]
+
+    def loss(m, b):
+        return jmodel.loss(jstep.cast_params(m, specs), b, remat="full")[0]
+    batch = {"tokens": jnp.asarray(tokens)}
+    jloss, jgrads = _compiled(jax.value_and_grad(loss), master, batch)(
+        master, batch)
+    calls = collections.Counter()
+    real = ssd._launch
+
+    def counted(*args):
+        calls["b4"] += 1
+        return real(*args)
+    ssd._launch = counted
+    try:
+        state = train_state_from_numpy(_np_tree(jstate), device="cpu")
+        got, grads = _port_grads(tmodel, state, tokens, "full")
+    finally:
+        ssd._launch = real
+    # each layer's scan once forward and once more under remat; the
+    # backward recomputes the plain version and launches nothing
+    assert calls["b4"] == 2 * tmodel.cfg.num_layers
+    assert abs(got - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    jgrads = _flat(jgrads)
+    assert set(grads) == set(jgrads)
+    worst = max((_rel_l2(grads[p], jgrads[p]), p) for p in grads)
+    print(f"mamba2: loss {got:.7f} vs {float(jloss):.7f}; largest grad "
+          f"relative L2 {worst[0]:.3e} ({worst[1]})")
+    assert worst[0] <= GRAD_RTOL, worst
+    assert all(np.any(g != 0) for g in grads.values())
 
 
 def test_remat_rejects_unknown_modes_and_caches():
